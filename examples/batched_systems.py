@@ -4,8 +4,8 @@
 
 A parameter sweep over 512 small SPD systems (one shared pattern,
 per-system coefficients) solved simultaneously by the lane-masked batched
-CG — the one-at-a-time path is grid-overhead bound on TPU (docs/PERF.md),
-the batched path is ~40x faster end-to-end.
+CG — one small system at a time is launch-overhead bound, so the
+batched path amortizes one launch over all systems.
 """
 
 import os
@@ -27,7 +27,7 @@ def main():
     # per-system coefficients: scaled copies (any values on the pattern work)
     vals = np.stack([pat.vals * s for s in (0.5 + rng.random(batch))]).astype(np.float32)
     op = BatchedEllOperator(pat, vals)
-    print(f"{batch} systems of {pat.rows} unknowns, one-hot MXU apply: {op.use_onehot}")
+    print(f"{batch} systems of {pat.rows} unknowns, one-hot matmul apply: {op.use_onehot}")
 
     b = rng.standard_normal((batch, pat.rows)).astype(np.float32)
     t0 = time.perf_counter()
@@ -43,4 +43,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from sparse_matrix_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -14,6 +14,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
+from sparse_matrix_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
+
 from sparse_matrix_tpu.core import (
     DokMatrix,
     parse_matrix_market,

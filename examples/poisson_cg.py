@@ -1,4 +1,4 @@
-"""End-to-end example: solve the 2D Poisson problem with CG on TPU.
+"""End-to-end example: solve the 2D Poisson problem with CG on the device.
 
     python examples/poisson_cg.py [grid_size]
 """
@@ -35,4 +35,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from sparse_matrix_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -6,7 +6,7 @@ Solves the same 2D Poisson system four ways — plain CG, Jacobi-PCG,
 IC(0)-PCG (native factorization + device Jacobi-sweep triangular solves),
 and smoothed-aggregation AMG-PCG — and prints iterations + wall time.
 Setup cost scales with strength: none < diagonal < IC(0) < AMG; per-solve
-speed goes the other way (docs/PERF.md "IC(0)-PCG" section).
+speed goes the other way.
 """
 
 import os
@@ -64,4 +64,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from sparse_matrix_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,10 +1,10 @@
-"""sparse_matrix_tpu — a TPU-native sparse linear algebra framework.
+"""sparse_matrix_tpu — a sparse linear algebra framework for JAX.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of the Rust
+A ground-up JAX/XLA re-design with the capabilities of the Rust
 ``sparse_matrix`` workspace (``spam_matrix`` trait layer, ``spam_dok`` DOK
 format + MatrixMarket I/O, ``spam_csr`` CSR + parallel hash SpGEMM,
-``linprobe`` linear-probe hash tables), plus the TPU-first extensions from the
-project north star: padded device formats, a Pallas segmented-reduction SpMV,
+``linprobe`` linear-probe hash tables), plus the device extensions from the
+project north star: padded device formats, planned segmented-reduction SpMV,
 sort-based and hash-based SpGEMM, a CG solver, and multi-chip sharding via
 ``jax.sharding`` meshes.
 

@@ -62,8 +62,8 @@ def _random_local(rng, n, per_row, bandwidth) -> CsrMatrix:
     """Unstructured but *local* matrix: random columns within a band around
     the diagonal — the FEM/circuit/RCM-reordered shape real unstructured
     corpora have (SuiteSparse matrices are rarely uniform-random; most have
-    strong locality, and the rest are a documented architectural corner for
-    any gather-less accelerator — see docs/PERF.md)."""
+    strong locality; uniform-random structure is the slab formats' corner
+    case)."""
     r = np.repeat(np.arange(n, dtype=np.int64), per_row)
     off = rng.integers(-bandwidth, bandwidth + 1, size=len(r))
     c = np.clip(r + off, 0, n - 1)

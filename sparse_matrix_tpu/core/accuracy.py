@@ -2,7 +2,7 @@
 
 Re-design of the reference's Higham forward-error bound check
 (``is_good_approx_of_mul``, ``spam_dok/src/lib.rs:52-93``), used because both
-the reference's hash-drain SpGEMM and our TPU kernels legitimately reorder
+the reference's hash-drain SpGEMM and our device kernels legitimately reorder
 float accumulation, so bitwise equality with the oracle is the wrong contract.
 
 The bound is (3.13) from Higham, *Accuracy and Stability of Numerical

@@ -1,6 +1,6 @@
 """Matrix abstraction layer.
 
-TPU-native re-design of the reference trait layer (``spam_matrix/src/lib.rs:15-27``):
+Re-design of the reference trait layer (``spam_matrix/src/lib.rs:15-27``):
 a small Python protocol that every host-side matrix format implements, plus the
 conformable-pair wrappers used by the property-test generators
 (``spam_matrix/src/lib.rs:29-35``).

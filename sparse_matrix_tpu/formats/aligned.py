@@ -2,7 +2,7 @@
 
 Round-2 redesign of the general SpMV path (VERDICT r1 item 2: break the
 26 Gnnz/s wall). The general :mod:`.lanepack` format packs 128 products per
-chunk regardless of destination and pays a segmented reduce per slab (MXU
+chunk regardless of destination and pays a segmented reduce per slab (a
 cumsum + two boundary gathers + the ``ends``/``starts`` byte streams). The
 **aligned** variant instead places each product at slot lane ``row % 128``:
 
@@ -11,9 +11,7 @@ cumsum + two boundary gathers + the ``ends``/``starts`` byte streams). The
 * products ``val * x_window[lane]`` are then *already* per-row
   contributions: no cumsum, no boundary gathers, no ends/starts streams
   (5 bytes/slot streamed instead of 8);
-* slabs accumulate into the VMEM-resident y with the same two-target
-  dynamic-index adds, alternating between 2 buffers to break the serial
-  read-modify-write chain (summed once at the end).
+* chunk contributions scatter-add into y by row block.
 
 The catch: a chunk only fills when ~128 rows of the block have a k-th entry
 in the same window — window-straddling rows and scattered matrices produce
@@ -22,10 +20,8 @@ with fewer than ``spill_k`` slots to a small general-LanePack sub-plan (the
 existing segmented-reduce kernel); fills >
 ``plan.fill`` ~1.0 on banded/local structures with a ~1% spill.
 
-Measured on v5e (experiments/aligned_spmv*.py): Poisson 512^2 general path
-26.3 -> 42.4 Gnnz/s (aligned alone, fill 0.77) -> see docs/PERF.md for the
-hybrid number. Uniform-random matrices keep the general path (aligned fill
-collapses; the planner gates on estimated fill).
+Uniform-random matrices keep the general path (aligned fill collapses;
+the planner gates on estimated fill).
 
 Same HBM contract as LanePack otherwise: uint32 column discipline, padded
 slabs stream zero values, plans are immutable and reusable.
@@ -196,7 +192,7 @@ def plan_aligned(
     Spilling only engages when it wins: straddler entries are often so
     scattered that the general sub-plan's slabs come out nearly empty (the
     two-row-block packing limit — measured 1024 slabs for 3072 spilled
-    Poisson entries, experiments/aligned_spmv3.py), making keep-everything
+    Poisson entries), making keep-everything
     the faster plan. The decision compares estimated kernel times via the
     autotuned per-slab costs.
     """

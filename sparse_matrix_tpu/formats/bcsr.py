@@ -1,10 +1,10 @@
-"""BCSR: block-compressed sparse rows with dense MXU-sized blocks.
+"""BCSR: block-compressed sparse rows with dense 128x128 blocks.
 
-North-star scope ("ELL/BCSR padded device formats"). The TPU has a 128x128
-systolic array; a sparse matrix whose nonzeros cluster into 128x128 tiles is
-best treated as *block-sparse with dense blocks*: only nonzero blocks are
-stored, each fully dense, so SpGEMM/SpMM become streams of MXU matmuls over
-matched block pairs — no per-element indexing at all.
+North-star scope ("ELL/BCSR padded device formats"). A sparse matrix whose
+nonzeros cluster into 128x128 tiles is best treated as *block-sparse with
+dense blocks*: only nonzero blocks are stored, each fully dense, so
+SpGEMM/SpMM become batched dense matmuls over matched block pairs — no
+per-element indexing at all.
 
 Blocks are stored row-major per block row (a CSR at block granularity):
 ``blocks (nnzb, BS, BS)``, ``block_cols (nnzb,)``, ``block_offsets

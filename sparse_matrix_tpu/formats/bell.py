@@ -1,12 +1,9 @@
 """BELL: blocked-ELL layers with *static* window offsets — the streaming
-general-path SpMV format (round-3 kernel family).
+general-path SpMV format.
 
-Why a third family (VERDICT r2 item 1): the aligned kernel's measured wall
-is the one dynamic x-window load per chunk (scalar-prefetched ``col_off``;
-~14 of 19 ns/slab in the round-2 ablation, docs/PERF.md), while the
-streaming-DIA kernel reaches 875 GB/s with nothing but *static* slices of
-an overlapping x window delivered by the BlockSpec pipeline
-(ops/spmv_dia.py). BELL ports that recipe to general matrices:
+Why a third family: the aligned format pays one dynamic x-window load per
+chunk (``col_off``), while DIA needs nothing but *static* shifted slices
+of x (ops/spmv_dia.py). BELL ports that recipe to general matrices:
 
 * an entry ``(r, c, v)`` lives in row block ``rb = r // 128`` at lane
   ``r % 128`` (destination-aligned, like formats/aligned.py);
@@ -24,13 +21,11 @@ an overlapping x window delivered by the BlockSpec pipeline
 * entries group into layers ``(b, k)`` — the k-th entry of ``(b, row)`` —
   giving ``L`` layers of ``(r128, 128)`` value planes plus ``pos`` lane
   indices (int8 storing pos-128 at span 128; int16 storing pos at 256);
-* the kernel's per-layer work is 1-3 STATIC window slices (``b`` is
+* the apply's per-layer work is 1-3 STATIC window slices (``b`` is
   compile-time), one in-row lane gather per *used* 128-half
-  (``take_along_axis(.., axis=1)`` — the fast Mosaic gather) merged by
-  half-index selects, one fma. No scalar prefetch, no dynamic loads, no
-  cumsum, no scatter; y is written once per grid step. Both slot data and
-  x STREAM through VMEM, so there is no rows/cols VMEM wall (the
-  aligned/LanePack kernels cap at ~3.5M cols / 1.6M rows).
+  (``take_along_axis(.., axis=1)``) merged by half-index selects, one fma.
+  No dynamic loads, no cumsum, no scatter; y is written once. There is no
+  rows/cols plan-size limit (the aligned/LanePack plans have one).
 
 The planner builds both span candidates and keeps the cheaper one
 (streamed bytes x the measured per-chunk cost): pure 5-point stencils
@@ -44,7 +39,7 @@ kernel cost.
 
 The reference's general SpGEMM load-balances by FLOPs across threads
 (/root/reference/spam_csr/src/mul_hash.rs:38-64); BELL is the SpMV analog
-of that discipline on a TPU: fixed-size streamed work per grid step,
+of that discipline: fixed-size work per 128-row block and layer,
 irregularity absorbed at plan time on the host.
 """
 
@@ -60,16 +55,15 @@ from .lanepack import LANES, SLOTS, LanePackPlan, plan_lanepack
 
 __all__ = ["BellPlan", "plan_bell", "estimate_bell"]
 
-# hard cap on kept layers: bounds kernel unroll length / compile time and
-# the (L, BR, 128) streamed block's VMEM footprint
+# hard cap on kept layers: bounds the unrolled apply's length / compile time
 MAX_LAYERS = 48
-# widest kept window span (in 128-col windows): bounds the per-step x
-# window block ((lo + BR + hi) * 512 B, double-buffered)
+# widest kept window span (in 128-col windows): bounds the padded x view
 MAX_DSPAN = 4096
 
-# VMEM budget for picking BR: double-buffered slot blocks + x window + y.
-# The kernel raises the scoped-vmem limit to 100 MB (spmv_bell.py); the
-# budget stays below that with headroom for compiler scratch.
+# plan-size limit for picking BR (the row-block padding step) and for the
+# packed multi-RHS path (ops/spmm.py bell_spmm_viable): slot blocks + x
+# window + y under this many bytes. Inherited from the first target's
+# on-chip memory budget; not re-tuned for the GPU.
 _BELL_VMEM_BUDGET = 72 * 1024 * 1024
 _BR_CANDIDATES = (512, 256, 128, 64, 32)
 
@@ -83,8 +77,8 @@ def _slot_bytes_per(span: int, dtype=np.float32) -> int:
 
 
 def pick_br(L: int, dmax: int, slot_bytes: int = 5) -> int:
-    """Rows-per-grid-step (in 128-row blocks x 128 lanes): the largest BR
-    whose double-buffered working set fits the VMEM budget."""
+    """Row-block padding step BR (in 128-row blocks): the largest
+    candidate whose working-set model fits the BELL plan-size limit."""
     for br in _BR_CANDIDATES:
         per_step = (
             L * br * LANES * slot_bytes
@@ -97,14 +91,11 @@ def pick_br(L: int, dmax: int, slot_bytes: int = 5) -> int:
 
 
 def bell_chunk_ns(br: int, dspan: int = 0) -> float:
-    """Measured per-(layer, 128-row-block) kernel cost as a function of the
-    grid-step height BR (experiments/bell_spmv.out, v5e): 0.68 ns at
-    br=512, 1.79 at 256, 2.77 at 128 — a c0 + c1*(128/br) interpolation
-    over the candidate range (the c0 < 0 fit value is empirical; the floor
-    keeps the extrapolation sane) — plus a measured linear penalty in the
-    kept window span (experiments/bell_br_sweep.out br=512 series: 1.07 ns
-    @ dspan 9, 1.22 @ 11, 3.08 @ 60; the per-layer x slices spread over
-    the window block, so span, not BR, sets the cost once VMEM is ample)."""
+    """Per-(layer, 128-row-block) cost model: a c0 + c1*(128/br)
+    interpolation over the BR candidates (the c0 < 0 fit value is
+    empirical; the floor keeps the extrapolation sane) plus a linear
+    penalty in the kept window span. Constants from utils.autotune
+    (inherited fits, not measured on the GPU)."""
     from ..utils import autotune
 
     c0 = autotune.get("bell_chunk_c0_ns")

@@ -246,10 +246,9 @@ class CsrMatrix(Matrix):
     def to_bcoo(self, *, dtype=None):
         """To ``jax.experimental.sparse.BCOO`` — the bridge to jax's own
         experimental sparse stack (``sparsify`` transforms, BCOO matmuls).
-        Note BCOO's general matvec lowers to XLA gather/scatter (~0.14
-        Gelem/s on v5e, docs/PERF.md); planned operators
-        (:class:`~sparse_matrix_tpu.ops.operator.SpmvOperator`) stay the
-        fast path — this exists for interop, not speed."""
+        Planned operators
+        (:class:`~sparse_matrix_tpu.ops.operator.SpmvOperator`) are the
+        library's SpMV path — this exists for interop."""
         import jax.numpy as jnp
         from jax.experimental import sparse as jsparse
 

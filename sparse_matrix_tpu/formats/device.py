@@ -1,7 +1,7 @@
 """Device-resident CSR: a jax pytree mirroring the host CSR arrays.
 
 The irregular host format (``spam_csr``'s vals/indices/offsets) moves to the
-device unchanged; TPU kernels that need regular access patterns consume the
+device unchanged; SpMV paths that need regular access patterns consume the
 planned :mod:`~sparse_matrix_tpu.formats.lanepack` views instead.
 """
 

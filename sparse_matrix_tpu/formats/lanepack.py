@@ -1,13 +1,12 @@
-"""LanePack: the TPU-native planned SpMV format.
+"""LanePack: the general planned SpMV format.
 
-A ground-up re-design of "CSR you can stream through a TPU". The reference
-streams CSR rows through per-core hash tables (``spam_csr/src/mul_hash.rs``) —
-a pointer-chasing pattern a TPU cannot run fast. Mosaic's fast data-movement
-primitives are: contiguous (8,128) VMEM tiles, *within-row* lane gathers
-(``take_along_axis(..., axis=1)``), dynamic row slices, and circular rolls.
-LanePack lays the matrix out so SpMV uses only those:
+A re-design of CSR as fixed-shape slabs. The reference streams CSR rows
+through per-core hash tables (``spam_csr/src/mul_hash.rs``) — a
+pointer-chasing pattern. LanePack lays the matrix out in (8,128) tiles so
+SpMV uses only *within-row* lane gathers (``take_along_axis(..., axis=1)``),
+dynamic row slices and prefix sums, all with static shapes:
 
-* columns are split into ``KW*128``-wide **windows**; ``x`` lives in VMEM as
+* columns are split into ``KW*128``-wide **windows**; ``x`` is viewed as
   ``x2d = x.reshape(C128, 128)`` and a window is ``KW`` consecutive rows of
   ``x2d`` (read with one dynamic row slice per chunk);
 * rows are split into 128-row **blocks**; ``y[row]``'s position within its
@@ -16,21 +15,20 @@ LanePack lays the matrix out so SpMV uses only those:
   ("chunk") holds up to 128 products sharing one column window and one row
   block, sorted by destination lane. ``lane`` (int16) is the product's x
   position within its window;
-* the kernel computes products ``val * x_window[lane]`` (``KW`` lane gathers
-  + masked select), a lane-axis prefix sum (a triangular MXU matmul), then
+* the apply computes products ``val * x_window[lane]`` (``KW`` lane gathers
+  + masked select), a lane-axis prefix sum, then
   per-destination-lane run sums via two more lane gathers at
   host-precomputed run boundaries ``ends``/``starts`` (int8) — a segmented
   reduction with no scatter;
-* each slab's (8,128) contributions are reduced and added into the resident
-  ``y`` (whole array in VMEM) by dynamic-index accumulates; with the default
-  "dense" packing a slab may span two row blocks and the kernel splits its
-  contribution by the planned sublane boundary.
+* each chunk's contributions are scatter-added into ``y`` by row block;
+  with the default "dense" packing a slab may span two row blocks (the
+  planned sublane boundary ``split`` records where).
 
 ``KW`` trades window fragmentation (more, emptier chunks at small ``KW``)
 against per-slot gather work (``KW`` masked gathers); the planner picks it by
 a calibrated cost model. The FLOP-balancing idea of the reference's
 ``rows_to_threads`` (``mul_hash.rs:38-64``) appears here as slot packing:
-work per grid step is a fixed slot count regardless of row-length skew.
+work per slab is a fixed slot count regardless of row-length skew.
 
 HBM traffic per slot: 4B vals (f32) + 2B lane + 1B ends + 1B starts = 8B,
 matching ideal CSR (4B val + 4B col index).
@@ -55,8 +53,8 @@ LANES = 128
 SLOTS = SUBLANES * LANES
 
 # cost model: time_per_slab ~ fixed + kw_slope * KW (ns). Constants come
-# from utils.autotune: calibrated on-device when a cache exists, else
-# v5e-measured defaults (experiments/sweep_spmv.out).
+# from utils.autotune: calibrated on-device when a cache exists, else the
+# inherited defaults.
 
 
 def _cost_constants():
@@ -170,7 +168,7 @@ def plan_lanepack(
     ``pack``: "dense" packs chunks with at most two row blocks per slab
     (best fill; kernel pays masked split accumulation); "per_rb" pads each
     row block's chunks to whole slabs (kernel does one unmasked (8,128)
-    accumulation per slab — ~12 ns/slab cheaper on v5e); "auto" picks by
+    accumulation per slab); "auto" picks by
     the slab-count cost model."""
     rows, cols = m.rows, m.cols
     nnz = m.nnz()
@@ -258,15 +256,13 @@ def plan_lanepack(
         )
         slabs_per_rb = int(np.sum(-(-counts0 // SUBLANES)))
         slabs_dense = -(-num_chunks // SUBLANES)
-        # per-slab kernel costs (autotune; v5e defaults: dense two-target
-        # masked ~30 ns, per_rb unmasked 3-D accumulate ~32 ns) — dense wins
+        # per-slab costs (autotune defaults: dense two-target ~30 ns,
+        # per_rb ~32 ns) — dense wins
         # unless per-rb padding is negligible AND slab counts diverge
         # strongly (rare); keep both modes selectable
         pack = "per_rb" if slabs_per_rb * c_per_rb < slabs_dense * c_dense else "dense"
-        # per_rb's y is (r128, 8, 128) f32 = 32 B/row of VMEM vs dense's
-        # 4 B/row: gate it by the kernels' 100 MB scoped-vmem budget
-        # (ops/spmv.py) so the raised split caps can't pick a per_rb plan
-        # whose stack no longer fits
+        # per_rb's planned y is (r128, 8, 128) f32 = 32 B/row vs dense's
+        # 4 B/row: an inherited plan-size gate keeps large operators dense
         if pack == "per_rb" and 32 * m.rows + 4 * m.cols > 88 * 1024 * 1024:
             pack = "dense"
 

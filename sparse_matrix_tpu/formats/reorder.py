@@ -1,13 +1,13 @@
 """Bandwidth-reducing reordering: reverse Cuthill-McKee (RCM).
 
-New scope beyond the Rust reference (which has no reordering pass): on TPU
-the SpMV fast paths depend on *index locality* — the DIA structure detector
+New scope beyond the Rust reference (which has no reordering pass): the
+SpMV fast paths depend on *index locality* — the DIA structure detector
 (`ops/spmv_dia.py`) needs populated diagonals, and the aligned window packer
 (`formats/aligned.py`) needs each row's columns clustered into few 128-wide
 windows. Real corpora (SuiteSparse-style) often arrive with arbitrary node
 numbering; RCM restores the locality those paths exploit, turning the
-documented no-locality corner (docs/PERF.md "uniform-random" negative) into
-the fast path. This is the TPU analog of the reference's philosophy of
+documented no-locality corner (uniform-random structure) into the fast
+path. This is the device analog of the reference's philosophy of
 shaping data for the execution substrate (FLOP-balanced chunks for rayon,
 ``spam_csr/src/mul_hash.rs:38-64``): here we shape the *index space* for the
 vector lanes.

@@ -6,8 +6,7 @@ target ONE 128-row block, because run sums are placed at destination lanes
 ``row % 128`` and lane uniqueness requires all rows of a chunk to live in
 one block. Entries per (row block x column window) cell are the fill bound
 — ~31/128 on the randlocal_262k corpus case (uniform columns in a +/-4096
-band), which is why every round-3 design bottomed at ~16% roofline there
-(docs/PERF.md).
+band), which is why every cell-keyed format packs it at low fill.
 
 Stripe breaks the cell bound: a chunk spans ``L`` row blocks (a *stripe*
 of ``L*128`` rows) while reading one column window. Within a stripe,
@@ -17,12 +16,9 @@ row's contribution: fill multiplies by ~L for ~2 streamed bytes and a few
 VPU ops per level. Two modes, picked by a calibrated cost model:
 
 * ``scan`` — entries sorted by (stripe, window, row, col); a chunk holds
-  row-contiguous runs, one MXU prefix scan (inclusive+exclusive in one
-  (128,256) matmul) resolves them, and per level TWO gathers take
-  ``incl[end] - excl[start]``. General (multi-entry runs); pays the
-  window-width gather (KW masked selects/slot) because fill needs wide
-  windows: measured per-slab model on v5e ns = 6.4 + 6.15*KW + 8.2*L
-  (experiments/stripe_bench_v2.out).
+  row-contiguous runs, one prefix scan resolves them, and per level TWO
+  gathers take ``incl[end] - excl[start]``. General (multi-entry runs);
+  pays the window-width gather because fill needs wide windows.
 * ``select`` — entries sorted by (stripe, window, col): each chunk's OWN
   column span is tiny by construction (~groupwidth*128/groupsize), so the
   gather width decouples from the fill-driving window width. Each
@@ -32,9 +28,8 @@ VPU ops per level. Two modes, picked by a calibrated cost model:
   gathers 0). Same-row collisions within a chunk are rare for scatter
   structure and spill to a LanePack sub-plan.
 
-A slab (8 chunks) shares one stripe; the kernel stacks the L level sums
-into an ``(L, 128)`` tile and accumulates it into the VMEM-resident y with
-ONE dynamic-index add per slab (alternating buffers break the RMW chain).
+A slab (8 chunks) shares one stripe; per level, each chunk's run sums
+scatter-add into that level's row block of y.
 
 New scope vs the reference (no SpMV there); the irregular-axis packing
 follows the FLOP-balancing idea of ``rows_to_threads``

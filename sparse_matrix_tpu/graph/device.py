@@ -1,7 +1,7 @@
 """Device shortest paths: tropical-semiring relaxation on banded graphs.
 
 One Bellman-Ford relaxation is an SpMV in the (min, +) semiring:
-``dist'[i] = min(dist[i], min_j (w(j->i) + dist[j]))``. There is no MXU
+``dist'[i] = min(dist[i], min_j (w(j->i) + dist[j]))``. There is no matrix-unit
 for (min, +), but for banded adjacency the DIA static-slice recipe
 (``ops/spmv_dia.py`` — every x-read a statically offset contiguous slice,
 no gathers) applies verbatim on the VPU: absent band slots hold ``+inf``

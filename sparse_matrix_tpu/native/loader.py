@@ -545,7 +545,7 @@ def spgemm_hash_native(lhs, rhs, *, output_sorted: bool = False, num_threads: in
     # SPA gate: a dense epoch-marked accumulator over the output column
     # space beats the probe chains (~2-3x at AMG Galerkin shapes) when the
     # per-chunk arrays stay small and the O(cols) setup amortizes over the
-    # FLOPs (measured: experiments/spa_spgemm.out)
+    # FLOPs
     flops_total = int(row_nz.sum())
     use_spa = rhs.cols <= _SPA_COLS_LIMIT and flops_total >= rhs.cols // 4
 

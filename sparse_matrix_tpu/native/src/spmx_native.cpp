@@ -1317,7 +1317,7 @@ extern "C" void spmx_aligned_fill_f64f64(i64 nchunks, const i64* cnt, const i64*
 }
 
 // Column-range partition of a row-sorted CSR into shards
-// (ops/operator.py colsplit for VMEM-oversize operators): one counting
+// (ops/operator.py colsplit for operators over the plan-size limit): one counting
 // pass + one scatter pass, replacing ~7 numpy full-nnz passes per shard.
 // bounds has nsplit+1 ascending column cuts. Outputs are shard-major:
 // out_offsets holds nsplit consecutive (rows+1) offset arrays;

@@ -1,5 +1,6 @@
-"""Kernels: SpMV (Pallas LanePack + XLA ELL), SpGEMM (native hash, ESC,
-block-dense MXU, auto-dispatch), sort-based device transpose/add/sub."""
+"""Kernels: planned SpMV/SpMM (DIA, slab formats, ELL), SpGEMM (native
+hash, ESC, block-dense, auto-dispatch), sort-based device
+transpose/add/sub."""
 
 from .spgemm_host import (  # noqa: F401
     flops_per_row,

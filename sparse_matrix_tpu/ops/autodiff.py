@@ -1,14 +1,14 @@
 """Autodiff through the sparse kernels: VJP-complete matvecs and
 implicitly-differentiated solves.
 
-Why this module exists: the Pallas kernel families (LanePack / Aligned /
-BELL) have no JAX AD rules — ``jax.grad`` through ``op(x)`` fails on them —
-yet the VJP of any linear map is just the transpose map, which this library
-can already plan and run at full speed. So:
+Why this module exists: differentiating the slab formats' gathers and
+scatter-adds directly yields a scatter-heavy backward program, yet the VJP
+of any linear map is just the transpose map, which this library can plan
+as its own operator. So:
 
 * :func:`linear_matvec` wraps a (matvec, rmatvec) pair in ``jax.custom_vjp``
-  — gradient w.r.t. ``x`` flows through EVERY format, Pallas included, and
-  the backward pass is itself a planned TPU SpMV (A^T's own format plan, as
+  — gradient w.r.t. ``x`` flows through EVERY format, and the backward
+  pass is itself a planned SpMV (A^T's own format plan, as
   fast as the forward);
 * :func:`differentiable_operator` builds that pair from a host CSR matrix;
 * :func:`cg_solve_implicit` / :func:`implicit_solve` differentiate THROUGH a
@@ -20,10 +20,10 @@ can already plan and run at full speed. So:
 Gradients w.r.t. the matrix VALUES: the pure-XLA format paths (DIA, ELL)
 differentiate natively — pass the operator as a pytree and grad through
 ``op.apply(params, x)`` w.r.t. ``params`` (tested in
-tests/test_autodiff.py). The Pallas paths are value-constant by design;
+tests/test_autodiff.py). The slab formats bake values into plan arrays;
 plan the operator as DIA/ELL (``force=``) when value gradients are needed.
 
-The reference has no AD story (a Rust CPU library); this is TPU-native
+The reference has no AD story (a Rust CPU library); this is device-side
 scope on top of its kernel surface (``spam_csr/src/mul_hash.rs`` ends at
 SpGEMM).
 """
@@ -48,8 +48,7 @@ def linear_matvec(matvec: Callable, rmatvec: Callable) -> Callable:
     """``f(x) = A x`` with a custom VJP ``ct -> A^T ct``.
 
     Both callables must be LINEAR (no bias) — the VJP of a linear map is
-    exactly its transpose, which is what makes Pallas kernels (no AD
-    rules) differentiable here. For complex operators pass the conjugate
+    exactly its transpose, which this wrapper plans as its own operator. For complex operators pass the conjugate
     transpose as ``rmatvec`` (JAX's vjp convention).
     """
 
@@ -101,8 +100,7 @@ def cg_solve_implicit(
     implicit function theorem (``lax.custom_linear_solve``,
     ``symmetric=True``) makes each tangent/cotangent pass ONE more CG
     solve with the SAME operator — A symmetric means the backward solve
-    needs no transposed kernels at all, so this works for every format
-    including Pallas. Returns only ``x`` (the solve is exact to ``tol``
+    needs no transposed operator at all, so this works for every format. Returns only ``x`` (the solve is exact to ``tol``
     as far as AD is concerned; iteration counts are not differentiable).
     """
     from ..solvers.cg import cg_solve

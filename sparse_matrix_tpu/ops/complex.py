@@ -2,15 +2,15 @@
 
 The reference supports complex through generics on its host structures
 (``spam_dok`` parses complex MatrixMarket; host DOK/CSR ops are generic);
-this module extends that to the DEVICE: TPUs have no native complex
-arithmetic, so ``A = Ar + i Ai`` splits into two real planned operators
-and every complex apply becomes two K=2 SpMMs —
+this module extends that to the DEVICE through the real planned formats:
+``A = Ar + i Ai`` splits into two real planned operators and every
+complex apply becomes two K=2 SpMMs —
 
 ``A x = (Ar xr - Ai xi) + i (Ar xi + Ai xr)``
 
 with ``[xr | xi]`` packed as a 2-column block so each operator streams its
-slabs ONCE for both the real and imaginary parts (the K-fold operand
-amortization of docs/PERF.md, here K=2). A purely-real matrix skips the
+slabs ONCE for both the real and imaginary parts (K-fold operand
+amortization, here K=2). A purely-real matrix skips the
 ``Ai`` operator entirely.
 """
 
@@ -56,38 +56,21 @@ class ComplexSpmvOperator:
         return self._ar.format
 
     def __call__(self, x):
-        import jax
         import jax.numpy as jnp
 
-        # The TPU backend has no complex dtypes at all (uploading a
-        # complex64 array raises UNIMPLEMENTED — measured on v5e), so on
-        # TPU the split/combine happens in host numpy around the real
-        # device SpMMs; complex-capable backends (CPU) keep the traced
-        # jnp path so the operator composes with jitted solvers there.
-        on_tpu = jax.default_backend() == "tpu"
-        if on_tpu and isinstance(x, jax.core.Tracer):
-            raise TypeError(
-                "ComplexSpmvOperator cannot be traced on the TPU backend "
-                "(no complex dtype support); call it eagerly"
-            )
-        xp = np if (on_tpu and not isinstance(x, jax.core.Tracer)) else jnp
-        x = xp.asarray(x)
+        x = jnp.asarray(x)
         vec = x.ndim == 1
         if vec:
             x = x[:, None]
         k = x.shape[1]
         # pack [Re x | Im x] as a 2K-column real block: one SpMM per part
-        xs = xp.concatenate([xp.real(x), xp.imag(x)], axis=1).astype(
+        xs = jnp.concatenate([jnp.real(x), jnp.imag(x)], axis=1).astype(
             self._real_dtype
         )
         yr = self._ar.matmat(xs)  # [Ar xr | Ar xi]
-        if xp is np:
-            yr = np.asarray(yr)
         re, im = yr[:, :k], yr[:, k:]
         if self._ai is not None:
             yi = self._ai.matmat(xs)  # [Ai xr | Ai xi]
-            if xp is np:
-                yi = np.asarray(yi)
             re = re - yi[:, k:]
             im = im + yi[:, :k]
         y = re + 1j * im

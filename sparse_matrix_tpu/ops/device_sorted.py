@@ -1,8 +1,8 @@
 """Sort-based device sparse ops: transpose, add/sub, ESC SpGEMM.
 
-TPU reality check (measured on v5e, see SURVEY §7 "hard parts"): XLA scatter
-and random gather are catastrophically slow, but ``jax.lax.sort`` and scans
-are fast. So every structural op here is a composition of:
+Design: every structural op here is a composition of sorts and scans
+(the first target's XLA scatter and random gather were slow, ``lax.sort``
+and scans fast; not re-measured on the GPU):
 
   multi-key sort -> run detection -> prefix-sum run totals -> compaction sort
 
@@ -12,7 +12,7 @@ Dynamic-shape discipline: XLA needs static shapes, but sparse results have
 data-dependent nnz. Every op returns a *padded* result (capacity = worst
 case, computed on host) plus a traced ``nnz`` scalar; padding rows carry the
 sentinel row id ``rows`` so offsets derived by ``searchsorted`` ignore them.
-This is the TPU analog of the reference's exact-allocation-after-symbolic
+This is the device analog of the reference's exact-allocation-after-symbolic
 design (``mul_hash_numeric``, ``spam_csr/src/mul_hash.rs:106-201``): the
 symbolic phase runs on host (:func:`expand_plan`), the numeric phase on
 device.
@@ -204,7 +204,7 @@ def expand_plan(lhs: CsrMatrix, rhs: CsrMatrix) -> Tuple[np.ndarray, np.ndarray,
 def _packed_run_reduce(key, val, rows: int, cols: int):
     """:func:`_run_reduce` on int32-packed ``row * cols + col`` keys —
     fewer sort operands/key compares on both sorts (the packed main sort
-    + this compaction are the ESC hot phases, experiments/esc_phases)."""
+    + this compaction are the ESC hot phases)."""
     n = val.shape[0]
     same_prev = jnp.concatenate(
         [jnp.zeros(1, bool), key[1:] == key[:-1]])
@@ -233,7 +233,7 @@ def _packed_run_reduce(key, val, rows: int, cols: int):
 @functools.partial(jax.jit, static_argnames=("rows", "cols"))
 def _packed_reduce_presort(key_const, p, rows: int, cols: int):
     """Sort (static packed key, products) and run-reduce — the back half
-    of the Pallas-expansion ESC engine (the key is plan data)."""
+    of the k-major-expansion ESC engine (the key is plan data)."""
     k_s, v_s = jax.lax.sort((key_const, p), num_keys=1)
     return _packed_run_reduce(k_s, v_s, rows, cols)
 
@@ -257,16 +257,12 @@ class EscSpgemm:
     device, reusable across repeated multiplies — the sort-engine analog of
     :class:`~.spgemm_block.BlockSpgemm`.
 
-    Round-4 default engine = the Pallas k-major expansion
-    (:mod:`.esc_expand`): operand streams window-local, sort key
-    host-precomputed, 1-key packed sorts. Queued-dispatch 176-183 Mprod/s
-    on uniform 2048/4096 squarings vs 80-82 for the XLA-gather engine
-    (experiments/esc_v2_bench.out) — the expansion gathers were 2/3 of the
-    old 75 Mprod/s budget (esc_phases.out). The XLA-gather engine remains
-    as ``engine="xla"`` and as the automatic fallback when the packed key
-    exceeds int32 or operand windows exceed the kernel budget; it stays
-    structure-independent (~75-82 Mprod/s) because it is one multi-key
-    ``lax.sort`` + segmented scan, not a per-row gather loop.
+    Default engine = the k-major expansion (:mod:`.esc_expand`, engine
+    name ``"kmajor"``): operand streams window-local, sort key
+    host-precomputed, 1-key packed sorts. The XLA-gather engine remains as
+    ``engine="xla"`` and as the automatic fallback when the packed key
+    exceeds int32 or operand windows exceed the plan limit; it is one
+    multi-key ``lax.sort`` + segmented scan, not a per-row gather loop.
 
     ``multiply_device(lhs_vals=, rhs_vals=)`` accepts fresh values with the
     SAME sparsity patterns (iterative algorithms re-multiply updated
@@ -289,7 +285,7 @@ class EscSpgemm:
         self.rhs_vals = jnp.asarray(rhs.vals.astype(dtype))
         self._xplan = None
         self._rspmv = None
-        if engine in ("auto", "pallas"):
+        if engine in ("auto", "kmajor"):
             from .esc_expand import plan_expand_kmajor
 
             xp = plan_expand_kmajor(lhs, rhs)
@@ -319,10 +315,10 @@ class EscSpgemm:
                     except Exception:
                         if reduce == "spmv":
                             raise
-            elif engine == "pallas":
+            elif engine == "kmajor":
                 raise ValueError(
-                    "pallas expansion unavailable (key exceeds int32 or "
-                    "operand windows exceed the kernel budget)")
+                    "k-major expansion unavailable (key exceeds int32 or "
+                    "operand windows exceed the plan limit)")
         if self._xplan is None:
             src, q, out_r = expand_plan(lhs, rhs)
             self.num_products = len(src)
@@ -336,15 +332,14 @@ class EscSpgemm:
 
     @property
     def engine(self) -> str:
-        return "pallas" if self._xplan is not None else "xla_gather"
+        return "kmajor" if self._xplan is not None else "xla_gather"
 
     def as_pytree(self):
         """Plan arrays (expansion slabs + the SpMV-reduce selection
         operator) as a pytree for :meth:`multiply_device`'s ``params=`` —
-        inside an outer jit (chained bench loops, solvers) they must ride
-        as runtime ARGUMENTS, not compiled constants (>24 MB constants
-        blow remote-compile payloads; the policy AmgRefresh.device_fn and
-        SpmvOperator.as_pytree established)."""
+        inside an outer jit (chained bench loops, solvers) they ride as
+        runtime ARGUMENTS, not compiled constants (the policy of
+        AmgRefresh.device_fn and SpmvOperator.as_pytree)."""
         out = {}
         if self._xplan is not None:
             from .esc_expand import expand_device_arrays

@@ -1,33 +1,21 @@
-"""Pallas expansion kernel for ESC SpGEMM (round 4, VERDICT r3 #2).
+"""k-major product expansion for ESC SpGEMM.
 
-The ESC engine's phase breakdown on v5e (experiments/esc_phases.out,
-uniform 4096 x 4096 at 0.5%, 1.63M products):
-
-    XLA expansion gathers   10.9 ms   (lhs_vals[src], rhs_vals[q],
-                                        rhs_indices[q] ~ 3.6 ms each)
-    two-key main sort        4.0 ms
-    run reduce (+compaction) 6.7 ms
-    total                   21.5 ms -> 75.8 Mprod/s
-
-The gathers are 2/3 of the budget, and they are STRUCTURALLY avoidable:
-the sparsity pattern is static, so the expansion's index streams are plan
+The sparsity pattern is static, so the expansion's index streams are plan
 data. This module reorders the products k-major (contraction index major:
 for each k, rhs row-k entries major, lhs col-k entries minor), which makes
 BOTH operand streams window-local:
 
-* the lhs values, stored CSC-permuted, are read per chunk from ONE
-  dynamic (kw,128) window slice + a lane gather (the proven stripe/
-  lanepack x-side machinery, ~2 ns per (8,128)-tile op);
+* the lhs values, stored CSC-permuted, are read per chunk of 128 products
+  from ONE (kw, 128) window + a lane gather;
 * the rhs values of consecutive k are CONTIGUOUS in CSR storage — same
   window treatment.
 
 The packed int32 sort key (out_row * cols + out_col) is host-precomputed
-(static pattern) and the main sort + compaction run the 1-key packed path
-(546 vs 398 Mprod/s isolated, esc_phases.out).
+(static pattern), so the main sort + compaction run the 1-key packed path.
 
-Capability gates (fall back to the XLA-gather engine): key must fit
-int32 ((rows+1)*cols < 2^31), operand windows must stay within the
-int16 lane range, and the lhs/rhs value arrays must fit VMEM.
+Capability gates (fall back to the XLA-gather engine): the key must fit
+int32 ((rows+1)*cols < 2^31) and operand windows must stay within
+``_MAX_KW`` rows of 128.
 """
 
 from __future__ import annotations
@@ -44,7 +32,9 @@ from ..formats.lanepack import LANES, SUBLANES
 
 __all__ = ["ExpandPlan", "plan_expand_kmajor", "expand_products"]
 
-_MAX_KW = 64  # per-chunk operand window rows (VMEM slice budget)
+# plan-size limit: per-chunk operand window rows (lane positions must fit
+# int16). Inherited from the first target's on-chip slice budget.
+_MAX_KW = 64
 
 
 class ExpandPlan(NamedTuple):
@@ -155,88 +145,37 @@ def plan_expand_kmajor(lhs: CsrMatrix, rhs: CsrMatrix):
     )
 
 
-def _make_expand_kernel(b: int, kw_lv: int, kw_rv: int):
-    from jax.experimental import pallas as pl
-
-    def kernel(lv_off_ref, rv_off_ref, lv_ref, rv_ref, lv_lane_ref,
-               rv_lane_ref, p_ref):
-        i = pl.program_id(0)
-        base = i * b * SUBLANES
-
-        def gather(x_ref, off_ref, lane_ref, kw):
-            xw = jnp.concatenate(
-                [x_ref[pl.ds(off_ref[base + j], kw), :]
-                 for j in range(b * SUBLANES)],
-                axis=0,
-            ).reshape(b * SUBLANES, kw, LANES)
-            lane = lane_ref[...].reshape(b * SUBLANES, LANES).astype(
-                jnp.int32)
-            if kw == 1:
-                return jnp.take_along_axis(xw[:, 0, :], lane, axis=1)
-            sub = jax.lax.shift_right_logical(lane, 7)
-            l = jax.lax.bitwise_and(lane, 127)
-            xg = jnp.zeros((b * SUBLANES, LANES), x_ref.dtype)
-            for k in range(kw):
-                g = jnp.take_along_axis(xw[:, k, :], l, axis=1)
-                xg = xg + jnp.where(sub == k, g, 0.0)
-            return xg
-
-        lv = gather(lv_ref, lv_off_ref, lv_lane_ref, kw_lv)
-        rv = gather(rv_ref, rv_off_ref, rv_lane_ref, kw_rv)
-        p_ref[...] = (lv * rv).reshape(b, SUBLANES, LANES)
-
-    return kernel
-
-
 def _pick_b(num_slabs: int) -> int:
+    # slab padding granularity of the plan arrays
     for cand in (64, 32, 16, 8, 4, 2):
         if num_slabs >= cand * 8:
             return cand
     return 1
 
 
-@functools.partial(jax.jit, static_argnames=("kw_lv", "kw_rv", "b",
-                                              "interpret"))
+@functools.partial(jax.jit, static_argnames=("kw_lv", "kw_rv"))
 def _expand_jit(lv_pad, rv_pad, lv_lane, rv_lane, lv_off, rv_off, *,
-                kw_lv: int, kw_rv: int, b: int, interpret: bool):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
+                kw_lv: int, kw_rv: int):
     num_slabs = lv_lane.shape[0]
-    if interpret:
-        s8 = num_slabs * SUBLANES
-        co_l = lv_off.astype(jnp.int32)
-        co_r = rv_off.astype(jnp.int32)
-        wl = lv_pad[co_l[:, None] + jnp.arange(kw_lv)[None, :]].reshape(
-            s8, kw_lv * LANES)
-        wr = rv_pad[co_r[:, None] + jnp.arange(kw_rv)[None, :]].reshape(
-            s8, kw_rv * LANES)
-        lv = jnp.take_along_axis(
-            wl, lv_lane.reshape(s8, LANES).astype(jnp.int32), axis=1)
-        rv = jnp.take_along_axis(
-            wr, rv_lane.reshape(s8, LANES).astype(jnp.int32), axis=1)
-        return (lv * rv).reshape(num_slabs, SUBLANES, LANES)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(num_slabs // b,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2
-        + [pl.BlockSpec((b, SUBLANES, LANES), lambda i, *r: (i, 0, 0))] * 2,
-        out_specs=pl.BlockSpec((b, SUBLANES, LANES), lambda i, *r: (i, 0, 0)),
-    )
-    return pl.pallas_call(
-        _make_expand_kernel(b, kw_lv, kw_rv),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((num_slabs, SUBLANES, LANES),
-                                       lv_pad.dtype),
-    )(lv_off, rv_off, lv_pad, rv_pad, lv_lane, rv_lane)
+    s8 = num_slabs * SUBLANES
+    co_l = lv_off.astype(jnp.int32)
+    co_r = rv_off.astype(jnp.int32)
+    wl = lv_pad[co_l[:, None] + jnp.arange(kw_lv)[None, :]].reshape(
+        s8, kw_lv * LANES)
+    wr = rv_pad[co_r[:, None] + jnp.arange(kw_rv)[None, :]].reshape(
+        s8, kw_rv * LANES)
+    lv = jnp.take_along_axis(
+        wl, lv_lane.reshape(s8, LANES).astype(jnp.int32), axis=1)
+    rv = jnp.take_along_axis(
+        wr, rv_lane.reshape(s8, LANES).astype(jnp.int32), axis=1)
+    return (lv * rv).reshape(num_slabs, SUBLANES, LANES)
 
 
 def expand_device_arrays(plan: ExpandPlan):
     """The plan's slab/offset arrays on device, padded to whole B-slab
     steps — reusable across calls, and passable as jit ARGUMENTS so
-    chained callers don't embed them as program constants (the >24 MB
-    payload policy; see EscSpgemm.as_pytree)."""
+    chained callers don't embed them as program constants (see
+    EscSpgemm.as_pytree)."""
     from ..utils.transfer import to_device
 
     b = _pick_b(plan.num_slabs)
@@ -261,8 +200,7 @@ def expand_device_arrays(plan: ExpandPlan):
     )
 
 
-def expand_products(plan: ExpandPlan, lv_csc, rv, *, device_arrays=None,
-                    interpret=None):
+def expand_products(plan: ExpandPlan, lv_csc, rv, *, device_arrays=None):
     """All intermediate products in plan order, padded to (S,8,128).
 
     ``lv_csc`` = lhs values already CSC-permuted (``vals[plan.perm_csc]``);
@@ -270,9 +208,6 @@ def expand_products(plan: ExpandPlan, lv_csc, rv, *, device_arrays=None,
     rows here. ``device_arrays`` = a cached/threaded
     :func:`expand_device_arrays` dict.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    b = _pick_b(plan.num_slabs)
     s = plan.num_slabs
 
     def pad_vals(v, kw):
@@ -285,6 +220,6 @@ def expand_products(plan: ExpandPlan, lv_csc, rv, *, device_arrays=None,
     p = _expand_jit(
         pad_vals(lv_csc, plan.kw_lv), pad_vals(rv, plan.kw_rv),
         arrs["lv_lane"], arrs["rv_lane"], arrs["lv_off"], arrs["rv_off"],
-        kw_lv=plan.kw_lv, kw_rv=plan.kw_rv, b=b, interpret=interpret,
+        kw_lv=plan.kw_lv, kw_rv=plan.kw_rv,
     )
     return p.reshape(-1)[: s * SUBLANES * LANES]

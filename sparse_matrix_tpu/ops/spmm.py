@@ -1,14 +1,16 @@
 """SpMM: sparse matrix times dense multi-vector block (A @ X).
 
-New scope beyond the reference (which is mat-mat/mat-vec-free): multi-RHS
-is where the MXU truly pays — every gathered operand is reused across the
-``F`` right-hand sides.
+New scope beyond the reference (which is mat-mat/mat-vec-free): with
+multiple right-hand sides every gathered operand is reused across the
+``F`` columns.
 
 * :func:`spmm_dia` — banded operator: static shifted slices of X, one fused
   elementwise pass per band, no indices.
-* :func:`spmm_bcsr` — block-sparse operator: one 128x128 MXU matmul per
-  stored block against the matching X block row, revisited-output
-  accumulation (Pallas; XLA einsum+scatter reference on CPU).
+* :func:`spmm_bcsr` — block-sparse operator: one batched 128x128 block
+  matmul per stored block against the matching X block row, scatter-added
+  by block row.
+* aligned / LanePack / BELL — the packed multi-RHS forms of the slab
+  formats (ops/spmv.py, ops/spmv_bell.py).
 """
 
 from __future__ import annotations
@@ -58,143 +60,31 @@ def spmm_dia(m: DiaMatrix, x):
     return _spmm_dia_jit(jnp.asarray(m.data), x, offsets=m.offsets, rows=m.rows)
 
 
-def _make_bcsr_kernel(precision):
-    from jax.experimental import pallas as pl
-
-    def kernel(brow_ref, bcol_ref, a_ref, x_ref, y_ref):
-        i = pl.program_id(0)
-        first = jnp.logical_or(i == 0, brow_ref[i] != brow_ref[jnp.maximum(i - 1, 0)])
-        prod = jnp.dot(
-            a_ref[0], x_ref[0], preferred_element_type=y_ref.dtype, precision=precision
-        )
-        prev = jnp.where(first, jnp.zeros_like(y_ref[0]), y_ref[0])
-        y_ref[0] = prev + prod
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("brows", "bs", "interpret", "precision"))
-def _spmm_bcsr_jit(a_blocks, brow, bcol, x3, *, brows, bs, interpret, precision):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
+@functools.partial(jax.jit, static_argnames=("brows", "bs", "precision"))
+def _spmm_bcsr_jit(a_blocks, brow, bcol, x3, *, brows, bs, precision):
     f = x3.shape[2]
-    if interpret:
-        prods = jnp.einsum("pij,pjk->pik", a_blocks, x3[bcol], precision=precision)
-        return jnp.zeros((brows, bs, f), a_blocks.dtype).at[brow].add(prods)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(a_blocks.shape[0],),
-        in_specs=[
-            pl.BlockSpec((1, bs, bs), lambda i, br, bc: (i, 0, 0)),
-            pl.BlockSpec((1, bs, f), lambda i, br, bc: (bc[i], 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, bs, f), lambda i, br, bc: (br[i], 0, 0)),
-    )
-    return pl.pallas_call(
-        _make_bcsr_kernel(precision),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((brows, bs, f), a_blocks.dtype),
-    )(brow, bcol, a_blocks, x3)
+    prods = jnp.einsum("pij,pjk->pik", a_blocks, x3[bcol], precision=precision)
+    return jnp.zeros((brows, bs, f), a_blocks.dtype).at[brow].add(prods)
 
 
 # ---------------------------------------------------------------------------
 # Aligned multi-RHS SpMM (general unstructured-with-locality operators)
 # ---------------------------------------------------------------------------
 #
-# The aligned SpMV kernel's dominant per-slab cost is the 8 dynamic x-window
-# loads (docs/PERF.md round-2 ablation: ~8.5 of 18.5 ns); with K right-hand
-# sides those loads amortize K-fold while the gather+multiply scales. The
-# RHS block lives in a *packed* layout (c128+1, K, 128) — window-major, K in
-# the sublane dimension, lanes last — so the kernel's window loads are
-# (1, K, 128) dynamic slices on the leading axis and the within-row lane
-# gather stays the known-fast 2-D take_along_axis(axis=1) shape. Solvers
-# keep every vector in this layout (see cg_solve_multi's packed mode): the
+# With K right-hand sides the per-chunk x-window loads amortize K-fold
+# while the gather+multiply scales. The RHS block lives in a *packed*
+# layout (c128+1, K, 128) — window-major, K in the middle, lanes last — so
+# each chunk's window is one (K, 128) row of the leading axis. Solvers keep
+# every vector in this layout (see cg_solve_multi's packed mode): the
 # (n, K) <-> packed relayout happens once per solve, not per apply.
 
 LANES = 128
 SUBLANES = 8
 
 
-def _make_aligned_spmm_kernel(b: int, k: int, nbuf: int = 2):
-    from jax.experimental import pallas as pl
-
-    def kernel(rb_a_ref, rb_b_ref, split_ref, col_off_ref, x_ref, vals_ref, lane_ref, y_ref):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            y_ref[...] = jnp.zeros_like(y_ref)
-
-        base = i * b * SUBLANES
-        xw = jnp.concatenate(
-            [x_ref[pl.ds(col_off_ref[base + j], 1), :, :] for j in range(b * SUBLANES)],
-            axis=0,
-        )  # (b*8, K, 128)
-        lane = lane_ref[...].reshape(b * SUBLANES, 1, LANES).astype(jnp.int32)
-        idx2 = jnp.broadcast_to(lane, (b * SUBLANES, k, LANES)).reshape(
-            b * SUBLANES * k, LANES
-        )
-        g = jnp.take_along_axis(xw.reshape(b * SUBLANES * k, LANES), idx2, axis=1)
-        p = vals_ref[...].reshape(b * SUBLANES, 1, LANES) * g.reshape(
-            b * SUBLANES, k, LANES
-        )
-        sub_iota = jax.lax.broadcasted_iota(jnp.int32, (SUBLANES, LANES), 0)
-        for bb in range(b):
-            c8 = p[bb * SUBLANES : (bb + 1) * SUBLANES]  # (8, K, 128)
-            total = jnp.sum(c8, axis=0)  # (K, 128)
-            sp = split_ref[i * b + bb]
-            # f32 mask (2-D, broadcast over K): Mosaic can't 3-D-broadcast i1
-            maskf = jnp.where(sub_iota < sp, 1.0, 0.0).astype(c8.dtype)
-            pa = jnp.sum(c8 * maskf[:, None, :], axis=0)
-            buf = bb % nbuf
-            y_ref[buf, pl.ds(rb_a_ref[i * b + bb], 1), :, :] += pa[None]
-            y_ref[buf, pl.ds(rb_b_ref[i * b + bb], 1), :, :] += (total - pa)[None]
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("rows", "b", "k", "nbuf", "interpret"))
-def _spmm_aligned_jit(arrs, x3, *, rows: int, b: int, k: int, nbuf: int, interpret: bool):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    r128 = -(-rows // LANES)
-    if interpret:
-        return _aligned_spmm_reference(arrs, x3, rows=rows)
-
-    num_slabs = arrs["vals"].shape[0]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(num_slabs // b,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)]
-        + [pl.BlockSpec((b, SUBLANES, LANES), lambda i, *refs: (i, 0, 0))] * 2,
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-    )
-    y = pl.pallas_call(
-        _make_aligned_spmm_kernel(b, k, nbuf),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nbuf, r128, k, LANES), x3.dtype),
-        # X + nbuf Y planes VMEM-resident: 16 MB default scoped limit is
-        # too small near the raised operator split caps (see ops/spmv.py)
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-    )(
-        arrs["rb_a"],
-        arrs["rb_b"],
-        arrs["split"],
-        arrs["col_off"],
-        x3,
-        arrs["vals"],
-        arrs["lane"],
-    )
-    y = jnp.sum(y, axis=0)
-    return jnp.where(arrs["rb_mask"][:, None, None] > 0, y, 0.0)
-
-
-def _aligned_spmm_reference(arrs, x3, *, rows: int):
-    """Pure-XLA evaluation (CPU path + semantics oracle), packed layout."""
+@functools.partial(jax.jit, static_argnames=("rows",))
+def _spmm_aligned_jit(arrs, x3, *, rows: int):
+    """XLA evaluation of an aligned plan, packed layout."""
     s8 = arrs["vals"].shape[0] * SUBLANES
     k = x3.shape[1]
     vals = arrs["vals"].reshape(s8, 1, LANES)
@@ -209,7 +99,7 @@ def _aligned_spmm_reference(arrs, x3, *, rows: int):
 
 def pack_rhs(x, cols: int, guard: int = 1):
     """(cols, K) -> packed (c128+guard, K, 128). The one relayout per
-    solve. ``guard`` zero windows let kernel window slices of width
+    solve. ``guard`` zero windows let window slices of width
     ``guard`` never run off the end (aligned uses 1; lanepack uses kw)."""
     x = jnp.asarray(x)
     k = x.shape[1]
@@ -226,12 +116,13 @@ def unpack_rhs(y3, rows: int):
 
 
 def _pick_b_spmm(k: int) -> int:
-    # per-step gather scratch is ~3 arrays of (b*8, K, 128) f32; keep it a
-    # few MB so the pipeline double-buffers comfortably
+    # slab padding granularity of the packed aligned arrays
     return max(8, min(64, 512 // max(1, k)))
 
 
-# packed VMEM budget: x3 + nbuf*y3 must stay well under the ~128 MB VMEM
+# plan-size limit of the packed aligned SpMM: (c128+1 + 2*r128)*K*128
+# floats of packed X and Y. Inherited from the first target's on-chip
+# memory budget; larger problems shard or split K.
 _VMEM_SPMM_LIMIT = 24_000_000  # floats
 
 
@@ -239,34 +130,28 @@ def spmm_aligned_packed(plan, x3, *, device_arrays=None, nbuf: int = 2):
     """Y = A @ X on an :class:`~..formats.aligned.AlignedPlan`, packed
     layout in AND out: ``x3`` is (c128+1, K, 128), the result is
     (r128, K, 128). Iterative multi-RHS solvers stay in this layout so the
-    kernel's K-fold x-window-load amortization is free of per-apply
-    relayouts. ``plan.spill`` is applied per-column via the general
-    LanePack kernel (spills are small by construction)."""
-    from .spmv import _interpret, _spmv_lanepack_jit, aligned_device_arrays, lanepack_device_arrays
+    K-fold x-window-load amortization is free of per-apply relayouts.
+    ``plan.spill`` is applied per-column via LanePack (spills are small by
+    construction)."""
+    from .spmv import _spmv_lanepack_jit, aligned_device_arrays, lanepack_device_arrays
 
     k = int(x3.shape[1])
     r128 = -(-plan.rows // LANES)
     c128 = -(-plan.cols // LANES)
     if (c128 + 1 + nbuf * r128) * k * LANES > _VMEM_SPMM_LIMIT:
         raise ValueError(
-            f"aligned SpMM keeps X and Y VMEM-resident; (rows={plan.rows}, "
-            f"cols={plan.cols}, K={k}) exceeds the budget — shard over a mesh "
-            "or split K"
+            f"aligned SpMM: (rows={plan.rows}, cols={plan.cols}, K={k}) is "
+            "over the packed plan-size limit — shard over a mesh or split K"
         )
     arrs = device_arrays
     if arrs is None or arrs.get("b") != _pick_b_spmm(k):
         arrs = aligned_device_arrays(plan, b=_pick_b_spmm(k))
-    interp = _interpret()
 
     def one(seg):
         return _spmm_aligned_jit(
             {kk: v for kk, v in seg.items() if kk not in ("b", "spill")},
             x3,
             rows=plan.rows,
-            b=arrs["b"],
-            k=k,
-            nbuf=nbuf,
-            interpret=interp,
         )
 
     if "segments" in arrs:
@@ -289,9 +174,6 @@ def spmm_aligned_packed(plan, x3, *, device_arrays=None, nbuf: int = 2):
                     rows=plan.rows,
                     cols=plan.cols,
                     kw=plan.spill.kw,
-                    b=sp_arrs["b"],
-                    interpret=interp,
-                    pack=plan.spill.pack,
                 )
             )
         y = y + pack_rhs(jnp.stack(cols_y, axis=1), plan.rows)[:r128]
@@ -318,7 +200,7 @@ def aligned_matvec_multi(plan, k: int, *, nbuf: int = 2):
 
 
 def spmm_aligned(plan, x, *, device_arrays=None):
-    """Y = A @ X (X is (cols, K)) via the aligned kernel; convenience
+    """Y = A @ X (X is (cols, K)) over an aligned plan; convenience
     wrapper over :func:`spmm_aligned_packed` paying one relayout each way.
     """
     x3 = pack_rhs(x, plan.cols)
@@ -331,131 +213,16 @@ def spmm_aligned(plan, x, *, device_arrays=None):
 # ---------------------------------------------------------------------------
 #
 # Same packed-RHS idea as the aligned SpMM, applied to the general LanePack
-# kernel (ops/spmv.py::_make_lanepack_kernel): every per-chunk operand
-# stream (vals/lane/ends/starts, the dominant 8 B/slot of the general
-# path) and every dynamic x-window load is issued ONCE and reused across
-# all K right-hand sides; only the lane gather, the MXU prefix sum (batched
-# into one (chunks*K, 128) triangular matmul), and the boundary gathers
-# scale with K. This removes SpmvOperator.matmat's per-column SpMV loop on
+# format: every per-chunk operand stream (vals/lane/ends/starts) and every
+# x-window load is read once and reused across all K right-hand sides;
+# only the lane gather, the prefix sum and the boundary gathers scale with
+# K. This removes SpmvOperator.matmat's per-column SpMV loop on
 # lanepack/hybrid operators (the block-AMG V-cycle's P^T apply).
 
 
-def _make_lanepack_spmm_kernel(b: int, kw: int, k: int, pack: str, nbuf: int):
-    from jax.experimental import pallas as pl
-
-    from .spmv import _lane_cumsum_mxu
-
-    def kernel(rb_a_ref, rb_b_ref, split_ref, col_off_ref, x_ref, vals_ref, lane_ref, ends_ref, starts_ref, y_ref):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            y_ref[...] = jnp.zeros_like(y_ref)
-
-        base = i * b * SUBLANES
-        n = b * SUBLANES
-        # one (kw, K, 128) window load per chunk serves all K columns
-        xw = jnp.concatenate(
-            [x_ref[pl.ds(col_off_ref[base + j], kw), :, :] for j in range(n)],
-            axis=0,
-        ).reshape(n, kw, k, LANES)
-
-        lane = lane_ref[...].reshape(n, 1, LANES).astype(jnp.int32)
-        v = vals_ref[...].reshape(n, 1, LANES)
-        if kw == 1:
-            idx2 = jnp.broadcast_to(lane, (n, k, LANES)).reshape(n * k, LANES)
-            xg = jnp.take_along_axis(
-                xw[:, 0].reshape(n * k, LANES), idx2, axis=1
-            ).reshape(n, k, LANES)
-        else:
-            sub = jax.lax.shift_right_logical(lane, 7)
-            l = jax.lax.bitwise_and(lane, 127)
-            idx2 = jnp.broadcast_to(l, (n, k, LANES)).reshape(n * k, LANES)
-            xg = jnp.zeros((n, k, LANES), v.dtype)
-            for w in range(kw):
-                g = jnp.take_along_axis(
-                    xw[:, w].reshape(n * k, LANES), idx2, axis=1
-                ).reshape(n, k, LANES)
-                # f32 mask (Mosaic can't 3-D-broadcast i1)
-                mw = jnp.where(sub == w, 1.0, 0.0).astype(v.dtype)
-                xg = xg + g * mw
-        p = v * xg  # (n, K, 128)
-
-        # per-chunk inclusive lane scan, all K batched into one MXU matmul
-        c = _lane_cumsum_mxu(p.reshape(n * k, LANES))
-        e2 = jnp.broadcast_to(
-            ends_ref[...].reshape(n, 1, LANES).astype(jnp.int32), (n, k, LANES)
-        ).reshape(n * k, LANES)
-        s2 = jnp.broadcast_to(
-            starts_ref[...].reshape(n, 1, LANES).astype(jnp.int32), (n, k, LANES)
-        ).reshape(n * k, LANES)
-        g_end = jnp.take_along_axis(c, e2, axis=1)
-        g_start = jnp.where(
-            s2 < 0, 0.0, jnp.take_along_axis(c, jnp.maximum(s2, 0), axis=1)
-        )
-        contrib = (g_end - g_start).reshape(n, k, LANES)
-
-        sub_iota = jax.lax.broadcasted_iota(jnp.int32, (SUBLANES, LANES), 0)
-        for bb in range(b):
-            c8 = contrib[bb * SUBLANES : (bb + 1) * SUBLANES]  # (8, K, 128)
-            total = jnp.sum(c8, axis=0)  # (K, 128)
-            buf = bb % nbuf
-            if pack == "per_rb":
-                # single-target slabs: one unmasked accumulate
-                y_ref[buf, pl.ds(rb_a_ref[i * b + bb], 1)] += total[None]
-            else:
-                sp = split_ref[i * b + bb]
-                maskf = jnp.where(sub_iota < sp, 1.0, 0.0).astype(c8.dtype)
-                pa = jnp.sum(c8 * maskf[:, None, :], axis=0)
-                y_ref[buf, pl.ds(rb_a_ref[i * b + bb], 1)] += pa[None]
-                y_ref[buf, pl.ds(rb_b_ref[i * b + bb], 1)] += (total - pa)[None]
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit, static_argnames=("rows", "kw", "b", "k", "nbuf", "interpret", "pack")
-)
-def _spmm_lanepack_jit(arrs, x3, *, rows, kw, b, k, nbuf, interpret, pack):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    r128 = -(-rows // LANES)
-    if interpret:
-        return _lanepack_spmm_reference(arrs, x3, rows=rows, kw=kw)
-
-    num_slabs = arrs["vals"].shape[0]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(num_slabs // b,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)]
-        + [pl.BlockSpec((b, SUBLANES, LANES), lambda i, *refs: (i, 0, 0))] * 4,
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-    )
-    y = pl.pallas_call(
-        _make_lanepack_spmm_kernel(b, kw, k, pack, nbuf),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nbuf, r128, k, LANES), x3.dtype),
-        # see the aligned SpMM call's scoped-vmem note
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-    )(
-        arrs["rb_a"],
-        arrs["rb_b"],
-        arrs["split"],
-        arrs["col_off"],
-        x3,
-        arrs["vals"],
-        arrs["lane"],
-        arrs["ends"],
-        arrs["starts"],
-    )
-    y = jnp.sum(y, axis=0)
-    return jnp.where(arrs["rb_mask"][:, None, None] > 0, y, 0.0)
-
-
-def _lanepack_spmm_reference(arrs, x3, *, rows: int, kw: int):
-    """Pure-XLA evaluation (CPU path + semantics oracle), packed layout."""
+@functools.partial(jax.jit, static_argnames=("rows", "kw"))
+def _spmm_lanepack_jit(arrs, x3, *, rows, kw):
+    """XLA evaluation of a LanePack plan, packed layout."""
     s8 = arrs["vals"].shape[0] * SUBLANES
     k = x3.shape[1]
     vals = arrs["vals"].reshape(s8, 1, LANES)
@@ -481,9 +248,7 @@ def _lanepack_spmm_reference(arrs, x3, *, rows: int, kw: int):
 
 
 def _pick_b_lp_spmm(k: int, kw: int) -> int:
-    # per-step scratch is ~5 arrays of (b*8, K(pad 8), 128) f32 plus the
-    # (b*8*kw, K, 128) window concat; the Mosaic scoped-vmem stack limit is
-    # 16 MB (hit at b=64, kw=2, K=5 — experiments/tpu_tests_r2c.out)
+    # slab padding granularity of the packed LanePack arrays
     return max(4, min(64, 256 // max(1, k * kw)))
 
 
@@ -491,21 +256,20 @@ def spmm_lanepack_packed(plan, x3, *, device_arrays=None, nbuf: int = 2):
     """Y = A @ X on a :class:`~..formats.lanepack.LanePackPlan`, packed
     layout in AND out: ``x3`` is (c128+kw, K, 128) (see :func:`pack_rhs`
     with ``guard=plan.kw``), the result is (r128, K, 128)."""
-    from .spmv import _VMEM_X_LIMIT, _interpret, lanepack_device_arrays
+    from .spmv import _VMEM_X_LIMIT, lanepack_device_arrays
 
     k = int(x3.shape[1])
     r128 = -(-plan.rows // LANES)
     c128 = -(-plan.cols // LANES)
     if plan.num_slabs * 8 * 4 > 900_000:
         raise ValueError(
-            f"LanePack plan has {plan.num_slabs} slabs; its scalar-prefetch "
-            "arrays exceed the 1 MB SMEM budget — use spmm_ell_xla"
+            f"LanePack plan has {plan.num_slabs} slabs, over the plan-size "
+            "limit — use spmm_ell_xla"
         )
     if (c128 + plan.kw + nbuf * r128) * k * LANES > _VMEM_X_LIMIT:
         raise ValueError(
-            f"lanepack SpMM keeps X and Y VMEM-resident; (rows={plan.rows}, "
-            f"cols={plan.cols}, K={k}) exceeds the budget — split K or use "
-            "spmm_ell_xla"
+            f"lanepack SpMM: (rows={plan.rows}, cols={plan.cols}, K={k}) is "
+            "over the packed plan-size limit — split K or use spmm_ell_xla"
         )
     arrs = device_arrays
     if arrs is None or arrs.get("b") != _pick_b_lp_spmm(k, plan.kw):
@@ -515,11 +279,6 @@ def spmm_lanepack_packed(plan, x3, *, device_arrays=None, nbuf: int = 2):
         x3,
         rows=plan.rows,
         kw=plan.kw,
-        b=arrs["b"],
-        k=k,
-        nbuf=nbuf,
-        interpret=_interpret(),
-        pack=plan.pack,
     )
 
 
@@ -541,14 +300,10 @@ def lanepack_matvec_multi(plan, k: int, *, nbuf: int = 2):
     return mv
 
 
-# Kernel-vs-loop dispatch (measured, experiments/spmm_lp_bsweep.out +
-# spmm_lp_crossover.out): the packed kernel's per-slab cost at K < 8 is
-# ~4-5x the single-SpMV slab cost (the (n, K, 128) <-> (n*K, 128)
-# relayouts around the batched cumsum), but a per-column loop pays K
-# kernel launches. So the loop only wins on LARGE plans at small K
-# (Poisson 512^2, ~1k slabs: K=4 loop is 1.37x the kernel), while small
-# plans (AMG level operators) and any K >= 8 (natural sublane tiling)
-# belong to the kernel — the K-only rule inverted the block-AMG win.
+# Packed-vs-loop dispatch: a per-column loop pays K launches, the packed
+# form pays relayouts. The crossover (loop on large plans at small K,
+# packed for small plans and K >= 8) is inherited from the first target
+# and has not been re-measured on the GPU.
 _LP_SPMM_MIN_K = 8
 _LP_SPMM_LOOP_MIN_SLABS = 512
 
@@ -560,7 +315,7 @@ def _lp_spmm_use_kernel(plan, k: int) -> bool:
 def spmm_lanepack(plan, x, *, device_arrays=None, nbuf: int = 2):
     """Y = A @ X (X is (cols, K)) via the general LanePack path.
 
-    Packed multi-RHS kernel when K >= 8 or the plan is small; per-column
+    Packed multi-RHS form when K >= 8 or the plan is small; per-column
     :func:`~.spmv.spmv_lanepack` loop for small K on large plans (see the
     measured dispatch note above)."""
     x = jnp.asarray(x, dtype=plan.dtype)
@@ -576,9 +331,9 @@ def spmm_lanepack(plan, x, *, device_arrays=None, nbuf: int = 2):
             axis=1,
         )
     k = int(x.shape[1])
-    # pad K >= 8 to sublane multiples (natural (8, 128) reshape tiles);
-    # small-K kernel calls on small plans keep their exact K — padding to
-    # 8 would quadruple their compute for launch-bound work
+    # pad K >= 8 to multiples of 8 (fewer distinct compiled shapes);
+    # small-K calls on small plans keep their exact K — padding to 8
+    # would quadruple their compute for launch-bound work
     if k >= _LP_SPMM_MIN_K and k % 8:
         kpad = -(-k // 8) * 8
         x = jnp.concatenate([x, jnp.zeros((x.shape[0], kpad - k), x.dtype)], axis=1)
@@ -600,6 +355,8 @@ def spmm_ell_xla(ev, ec, x):
 def spmm_bcsr(m: BsrMatrix, x, *, precision=None):
     """Y = A @ X for a BCSR operator; X is (cols, F). F is padded to a
     multiple of 128 internally."""
+    # f32 block products in full precision: the default GPU matmul may
+    # round operands to TF32 (~3 decimal digits)
     precision = precision if precision is not None else jax.lax.Precision.HIGHEST
     x = np.asarray(x, dtype=m.blocks.dtype)
     f = x.shape[1]
@@ -620,7 +377,6 @@ def spmm_bcsr(m: BsrMatrix, x, *, precision=None):
         x3,
         brows=m.brows,
         bs=m.bs,
-        interpret=jax.default_backend() != "tpu",
         precision=precision,
     )
     y3 = jnp.where(jnp.asarray(has)[:, None, None], y3, 0.0)
@@ -628,61 +384,16 @@ def spmm_bcsr(m: BsrMatrix, x, *, precision=None):
 
 # ---------------------------------------------------------------------------
 # BELL SpMM: the streaming general-path family (formats/bell.py) with K
-# right-hand sides. The slot planes (the HBM-dominant stream: 5 B/slot)
-# are read ONCE for all K columns; x lives VMEM-resident in the packed
-# (rows_tot, K, 128) layout and each (layer, half) costs one (BR, K, 128)
-# dynamic slice + one batched (BR*K, 128) lane gather. This removes
-# SpmvOperator.matmat's per-column loop on BELL operators (the dominant
-# general format since the round-3 dispatch) for K in [2, 16].
+# right-hand sides. The slot planes (5 B/slot) are read ONCE for all K
+# columns; x lives in the packed (rows_tot, K, 128) layout and each
+# (layer, half) costs one row-shifted slice + one batched lane gather.
+# This removes SpmvOperator.matmat's per-column loop on BELL operators for
+# K in [2, 16].
 # ---------------------------------------------------------------------------
 
 
-def _make_bell_spmm_kernel(ds: tuple, modes: tuple, span: int, lo: int,
-                           br: int, k: int):
-    from jax.experimental import pallas as pl
-
-    bias = LANES if span == 128 else 0
-
-    def kernel(vals_ref, lane_ref, x_ref, y_ref):
-        i = pl.program_id(0)
-        base = i * br
-        acc = jnp.zeros((br, k, LANES), x_ref.dtype)
-        slices = {}  # absolute window-row offset -> (br, k, 128) slice
-        for li, (d, mask) in enumerate(zip(ds, modes)):
-            pos = lane_ref[li].astype(jnp.int32) + bias  # (br, 128)
-            idx = jnp.bitwise_and(pos, 127)
-            half = jax.lax.shift_right_logical(pos, 7)
-            idx3 = jnp.broadcast_to(
-                idx[:, None, :], (br, k, LANES)).reshape(br * k, LANES)
-            xg = None
-            for h in range(span // 128 + 1):
-                if not (mask >> h) & 1:
-                    continue
-                off = d + h
-                if off not in slices:
-                    slices[off] = x_ref[pl.ds(base + lo + off, br), :, :]
-                g = jnp.take_along_axis(
-                    slices[off].reshape(br * k, LANES), idx3, axis=1
-                ).reshape(br, k, LANES)
-                if xg is None:
-                    xg = g
-                else:
-                    # planner guarantees each slot's half bit is in mask,
-                    # so the per-half masks partition: additive select
-                    # (Mosaic cannot broadcast i1 in 3-D)
-                    mh = jnp.where(half == h, 1.0, 0.0).astype(x_ref.dtype)
-                    xg = xg * (1.0 - mh[:, None, :]) + g * mh[:, None, :]
-            v = vals_ref[li]
-            if v.dtype != acc.dtype:  # bf16 planes: widen, f32 accumulate
-                v = v.astype(acc.dtype)
-            acc = acc + v[:, None, :] * xg
-        y_ref[...] = acc
-
-    return kernel
-
-
 def _bell_spmm_x3(x, *, cols: int, lo: int, hi: int):
-    """(cols, K) -> VMEM-resident (lo + c128 + hi, K, 128) packed RHS."""
+    """(cols, K) -> (lo + c128 + hi, K, 128) packed RHS."""
     c128 = -(-cols // LANES)
     k = x.shape[1]
     xpad = jnp.zeros((c128 * LANES, k), x.dtype).at[: x.shape[0]].set(x)
@@ -699,14 +410,10 @@ def _bell_spmm_x3(x, *, cols: int, lo: int, hi: int):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("ds", "modes", "span", "rows", "cols", "br", "k",
-                     "interpret"),
+    static_argnames=("ds", "modes", "span", "rows", "cols", "br", "k"),
 )
 def _spmm_bell_jit(vals, lane, x, *, ds: tuple, modes: tuple, span: int,
-                   rows: int, cols: int, br: int, k: int, interpret: bool):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
+                   rows: int, cols: int, br: int, k: int):
     r128p = vals.shape[1]
     c128 = -(-cols // LANES)
     nh = span // 128 + 1
@@ -720,69 +427,44 @@ def _spmm_bell_jit(vals, lane, x, *, ds: tuple, modes: tuple, span: int,
     x3 = _bell_spmm_x3(x, cols=cols, lo=lo, hi=hi)
 
     bias = LANES if span == 128 else 0
-    if interpret:
-        # pure-XLA reference (CPU path + semantics oracle), same math
-        y3 = jnp.zeros((r128p, k, LANES), x.dtype)
-        for li, (d, mask) in enumerate(zip(ds, modes)):
-            pos = lane[li].astype(jnp.int32) + bias
-            idx = jnp.bitwise_and(pos, 127)
-            half = jax.lax.shift_right_logical(pos, 7)
-            idx3 = jnp.broadcast_to(
-                idx[:, None, :], (r128p, k, LANES)).reshape(r128p * k, LANES)
-            xg = None
-            for h in range(nh):
-                if not (mask >> h) & 1:
-                    continue
-                a = jax.lax.slice_in_dim(x3, lo + d + h, lo + d + h + r128p,
-                                         axis=0)
-                g = jnp.take_along_axis(
-                    a.reshape(r128p * k, LANES), idx3, axis=1
-                ).reshape(r128p, k, LANES)
-                if xg is None:
-                    xg = g
-                else:
-                    xg = jnp.where(half[:, None, :] == h, g, xg)
-            y3 = y3 + vals[li].astype(x.dtype)[:, None, :] * xg
-        return y3.transpose(0, 2, 1).reshape(-1, k)[:rows]
-
-    L = len(ds)
-    y3 = pl.pallas_call(
-        _make_bell_spmm_kernel(ds, modes, span, lo, br, k),
-        grid=(r128p // br,),
-        in_specs=[
-            pl.BlockSpec((L, br, LANES), lambda i: (0, i, 0)),
-            pl.BlockSpec((L, br, LANES), lambda i: (0, i, 0)),
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # x3 resident
-        ],
-        out_specs=pl.BlockSpec((br, k, LANES), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((r128p, k, LANES), x.dtype),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-    )(vals, lane, x3)
+    y3 = jnp.zeros((r128p, k, LANES), x.dtype)
+    for li, (d, mask) in enumerate(zip(ds, modes)):
+        pos = lane[li].astype(jnp.int32) + bias
+        idx = jnp.bitwise_and(pos, 127)
+        half = jax.lax.shift_right_logical(pos, 7)
+        idx3 = jnp.broadcast_to(
+            idx[:, None, :], (r128p, k, LANES)).reshape(r128p * k, LANES)
+        xg = None
+        for h in range(nh):
+            if not (mask >> h) & 1:
+                continue
+            a = jax.lax.slice_in_dim(x3, lo + d + h, lo + d + h + r128p,
+                                     axis=0)
+            g = jnp.take_along_axis(
+                a.reshape(r128p * k, LANES), idx3, axis=1
+            ).reshape(r128p, k, LANES)
+            if xg is None:
+                xg = g
+            else:
+                xg = jnp.where(half[:, None, :] == h, g, xg)
+        y3 = y3 + vals[li].astype(x.dtype)[:, None, :] * xg
     return y3.transpose(0, 2, 1).reshape(-1, k)[:rows]
 
 
 def bell_spmm_viable(plan, k: int) -> bool:
-    """Kernel gate: 2 <= K <= 16 and the resident packed RHS + streamed
-    planes stay inside the VMEM budget."""
-    from ..formats.bell import _BELL_VMEM_BUDGET
-
+    """Packed-path gate: 2 <= K <= 16 and the packed RHS + planes stay
+    inside the BELL plan-size limit."""
     return 2 <= k <= 16 and _bell_spmm_pick_br(plan, k, 512) >= 32
 
 
 def _bell_spmm_pick_br(plan, k: int, br0: int) -> int:
-    """Largest BR whose kernel working set fits the VMEM budget, or 0.
+    """Largest BR (rows of 128 per step, a power of two >= 32) whose
+    working-set model fits the BELL plan-size limit, or 0.
 
-    Working set = resident packed RHS + double-buffered slot planes +
-    one live (BR, K, 128) x slice per DISTINCT window offset (the
-    kernel's ``slices`` dict — forgetting these cost a measured 14 MB
-    OOM at femlike K=16, experiments/bell_spmm_bench.out) + y block
-    (double-buffered) + the accumulator. The per-offset term is DOUBLED:
-    the register allocator spills gather/reshape temporaries of the same
-    shape (measured 99 MB of spill slots at femlike L=9 K=16 BR=512,
-    experiments/bell_spmm_k16_fix.out; the doubled model picks BR=256
-    there while keeping BR=512 at poisson K=16 and femlike K=8, both of
-    which compiled and ran)."""
+    Model = packed RHS + two copies of the slot planes + two (BR, K, 128)
+    x slices per distinct window offset + the y block and accumulator.
+    Inherited from the first target's on-chip memory budget; it bounds the
+    packed path's size and picks the padding step."""
     from ..formats.bell import _BELL_VMEM_BUDGET
 
     c128 = -(-plan.cols // LANES)
@@ -805,21 +487,20 @@ def _bell_spmm_pick_br(plan, k: int, br0: int) -> int:
 
 def spmm_bell(plan, x, *, device_arrays=None):
     """Y = A @ X (X is (cols, K)) on a :class:`~..formats.bell.BellPlan`:
-    one streamed pass over the slot planes for all K columns (+ the
-    lanepack SpMM on the spill sub-plan when the plan has one)."""
+    one pass over the slot planes for all K columns (+ the lanepack SpMM
+    on the spill sub-plan when the plan has one)."""
     from .spmv_bell import bell_device_arrays
 
     x = jnp.asarray(x, dtype=plan.dtype)
     k = int(x.shape[1])
     if not bell_spmm_viable(plan, k):
         raise ValueError(
-            f"spmm_bell gate: K={k} (need 2..16) or packed RHS exceeds the "
-            "VMEM budget; chunk K or fall back to per-column spmv_bell")
+            f"spmm_bell gate: K={k} (need 2..16) or packed RHS over the "
+            "plan-size limit; chunk K or fall back to per-column spmv_bell")
     arrs = (device_arrays if device_arrays is not None
             else bell_device_arrays(plan))
-    interp = jax.default_backend() != "tpu"
     if plan.num_layers:
-        # shrink BR until the K-scaled working set fits alongside x3
+        # shrink BR until the K-scaled working set fits the limit
         br = _bell_spmm_pick_br(plan, k, int(arrs["br"]))
         r128p = arrs["vals"].shape[1]
         vals, lane = arrs["vals"], arrs["lane"]
@@ -830,7 +511,7 @@ def spmm_bell(plan, x, *, device_arrays=None):
         y = _spmm_bell_jit(
             vals, lane, x,
             ds=plan.ds, modes=plan.modes, span=plan.span, rows=plan.rows,
-            cols=plan.cols, br=br, k=k, interpret=interp,
+            cols=plan.cols, br=br, k=k,
         )
     else:
         y = jnp.zeros((plan.rows, k), dtype=plan.dtype)

@@ -1,18 +1,14 @@
-"""SpMV kernels.
+"""SpMV over the planned slab formats, evaluated by XLA.
 
-Three paths, fastest first:
-
-* :func:`spmv_lanepack` — the Pallas TPU kernel over a
+* :func:`spmv_lanepack` — a
   :class:`~sparse_matrix_tpu.formats.lanepack.LanePackPlan` (see that module's
-  docstring for the format design). Per grid step it streams ``B`` slabs
-  (``B*8`` chunks = ``B*1024`` slots), assembles the per-chunk x windows with
-  dynamic row slices, lane-gathers x, multiplies, prefix-sums each chunk on
-  the MXU (triangular matmul), segment-reduces at host-planned boundaries,
-  and accumulates per-slab partials into the VMEM-resident y (split between
-  two row blocks under dense packing). ~26 Gnnz/s on Poisson 512^2,
-  VPU-op-bound (see docs/PERF.md).
-* :func:`spmv_ell_xla` — pure-XLA padded-ELL gather+reduce; any backend, any
-  sharding; the multi-chip building block and correctness baseline.
+  docstring for the format design): per chunk of 128 slots, gather x from
+  the chunk's column window, multiply, prefix-sum along the chunk, take the
+  run sums at host-planned boundaries, and scatter-add them by row block.
+* :func:`spmv_aligned` / :func:`spmv_stripe` — the destination-aligned and
+  multi-level slab formats (formats/aligned.py, formats/stripe.py).
+* :func:`spmv_ell_xla` — padded-ELL gather+reduce; any sharding; the
+  multi-chip building block and correctness baseline.
 * :func:`spmv_oracle` — numpy CSR row loop; the test oracle.
 
 New scope vs the reference (which has no SpMV), per the project north star.
@@ -44,100 +40,9 @@ __all__ = [
 ]
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-def _lane_cumsum(p: jnp.ndarray) -> jnp.ndarray:
-    """Inclusive prefix sum along the lane axis via 7 roll+add steps
-    (Mosaic has no cumsum lowering). Rows are independent."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    lanes = jax.lax.broadcasted_iota(jnp.int32, p.shape, 1)
-    for s in (1, 2, 4, 8, 16, 32, 64):
-        p = p + jnp.where(lanes >= s, pltpu.roll(p, s, axis=1), 0.0)
-    return p
-
-
-def _lane_cumsum_mxu(p: jnp.ndarray) -> jnp.ndarray:
-    """Inclusive lane prefix sum as a matmul with an upper-triangular ones
-    matrix — offloads the scan to the MXU, freeing the VPU (measured ~1.8x
-    whole-kernel speedup over the roll+add scan on v5e).
-
-    Precision.HIGHEST is required: the TPU's default f32 matmul rounds
-    operands to bf16, which corrupts the prefix sums."""
-    rowi = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 0)
-    coli = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 1)
-    tri = jnp.where(rowi <= coli, 1.0, 0.0).astype(p.dtype)
-    return jnp.dot(
-        p, tri, preferred_element_type=p.dtype, precision=jax.lax.Precision.HIGHEST
-    )
-
-
-def _make_lanepack_kernel(b: int, kw: int, pack: str = "dense"):
-    from jax.experimental import pallas as pl
-
-    def kernel(rb_a_ref, rb_b_ref, split_ref, col_off_ref, x_ref, vals_ref, lane_ref, ends_ref, starts_ref, y_ref):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            y_ref[...] = jnp.zeros_like(y_ref)
-
-        base = i * b * SUBLANES
-        # per-chunk x windows: (B*8, KW, 128), one dynamic row slice per chunk
-        xw = jnp.concatenate(
-            [x_ref[pl.ds(col_off_ref[base + j], kw), :] for j in range(b * SUBLANES)],
-            axis=0,
-        ).reshape(b * SUBLANES, kw, LANES)
-
-        lane = lane_ref[...].reshape(b * SUBLANES, LANES).astype(jnp.int32)
-        v = vals_ref[...].reshape(b * SUBLANES, LANES)
-        if kw == 1:
-            xg = jnp.take_along_axis(xw[:, 0, :], lane, axis=1)
-        else:
-            sub = jax.lax.shift_right_logical(lane, 7)
-            l = jax.lax.bitwise_and(lane, 127)
-            xg = jnp.zeros_like(v)
-            for k in range(kw):
-                g = jnp.take_along_axis(xw[:, k, :], l, axis=1)
-                xg = xg + jnp.where(sub == k, g, 0.0)
-        p = v * xg
-
-        # inclusive+exclusive scans from ONE MXU matmul: the boundary
-        # gathers run unmasked (run [h,t] = incl[t] - excl[h]; the empty
-        # default ends=0/starts=0 -> incl[0] - excl[1] cancels exactly)
-        incl, excl = _lane_cumsum_mxu_both(p)
-        ends = ends_ref[...].reshape(b * SUBLANES, LANES).astype(jnp.int32)
-        h = starts_ref[...].reshape(b * SUBLANES, LANES).astype(jnp.int32) + 1
-        contrib = (jnp.take_along_axis(incl, ends, axis=1)
-                   - jnp.take_along_axis(excl, h, axis=1))  # (B*8, 128)
-
-        if pack == "per_rb":
-            # single-target slabs: one unmasked (1,8,128) accumulate each;
-            # y is (r128, 8, 128), sublanes reduced outside the kernel
-            c3 = contrib.reshape(b, SUBLANES, LANES)
-            for bb in range(b):
-                y_ref[pl.ds(rb_a_ref[i * b + bb], 1)] += c3[bb][None]
-        else:
-            # two-target accumulation: sublanes [0, split) belong to rb_a,
-            # the rest to rb_b (slabs pack chunks of at most two row blocks)
-            sub_iota = jax.lax.broadcasted_iota(jnp.int32, (SUBLANES, LANES), 0)
-            for bb in range(b):
-                c8 = contrib[bb * SUBLANES : (bb + 1) * SUBLANES]
-                total = jnp.sum(c8, axis=0, keepdims=True)
-                sp = split_ref[i * b + bb]
-                part_a = jnp.sum(jnp.where(sub_iota < sp, c8, 0.0), axis=0, keepdims=True)
-                y_ref[pl.ds(rb_a_ref[i * b + bb], 1), :] += part_a
-                y_ref[pl.ds(rb_b_ref[i * b + bb], 1), :] += total - part_a
-
-    return kernel
-
-
 def _pick_b(num_slabs: int) -> int:
-    # larger B amortizes per-step overhead but grows compile time; the
-    # round-2 sweep (experiments/sweep_spmv.out, aligned_spmv.py) measured
-    # B=64 ~10% faster than B=32 at >=512 slabs on both kernels
+    # padding granularity of the slab arrays (plans are padded to a whole
+    # number of B-slab steps; padding slabs hold zeros)
     for cand in (64, 32, 16, 8, 4, 2):
         if num_slabs >= cand * 8:
             return cand
@@ -179,74 +84,15 @@ def lanepack_device_arrays(plan: LanePackPlan, *, b: Optional[int] = None):
     )
 
 
-@functools.partial(jax.jit, static_argnames=("rows", "cols", "kw", "b", "interpret", "pack"))
-def _spmv_lanepack_jit(arrs, x, *, rows: int, cols: int, kw: int, b: int, interpret: bool, pack: str = "dense"):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    r128 = -(-rows // LANES)
+@functools.partial(jax.jit, static_argnames=("rows", "cols", "kw"))
+def _spmv_lanepack_jit(arrs, x, *, rows: int, cols: int, kw: int):
+    """XLA evaluation of a LanePack plan: per chunk, gather x from the
+    chunk's window, multiply, prefix-sum, take the run sums at the
+    planned boundaries, scatter-add by row block."""
     c128 = -(-cols // LANES)
-    num_slabs = arrs["vals"].shape[0]
-
     # pad x; add KW guard rows so window slices never run off the end
     xpad = jnp.zeros((c128 + kw) * LANES, x.dtype).at[: x.shape[0]].set(x)
     x2d = xpad.reshape(c128 + kw, LANES)
-
-    if interpret:
-        # non-TPU backends: run the same LanePack math as vectorized XLA ops
-        # (Pallas interpret mode executes per grid step in Python — far too
-        # slow for the property-test suite). The Mosaic kernel itself is
-        # exercised on TPU.
-        return _lanepack_reference(arrs, x2d, rows=rows, kw=kw)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(num_slabs // b,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)]
-        + [pl.BlockSpec((b, SUBLANES, LANES), lambda i, *refs: (i, 0, 0))] * 4,
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-    )
-    out_shape = (
-        jax.ShapeDtypeStruct((r128, SUBLANES, LANES), x.dtype)
-        if pack == "per_rb"
-        else jax.ShapeDtypeStruct((r128, LANES), x.dtype)
-    )
-    y2d = pl.pallas_call(
-        _make_lanepack_kernel(b, kw, pack),
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        interpret=interpret,
-        # Mosaic's default scoped-vmem limit is 16 MB, but the kernel keeps
-        # x AND y fully VMEM-resident: a colsplit x rowsplit shard near both
-        # split caps (3.26M cols + 1.57M rows, AmgRefresh at Poisson 2048^2)
-        # stacks 19.43 MB and OOMs at the DEFAULT limit while using a
-        # fraction of the 128 MB physical VMEM. Raise it like the BELL
-        # kernel does; the operator split caps (_VMEM_X_LIMIT /
-        # _ROWS_SPLIT_LIMIT) bound the worst case at ~65 MB (per_rb).
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-    )(
-        arrs["rb_a"],
-        arrs["rb_b"],
-        arrs["split"],
-        arrs["col_off"],
-        x2d,
-        arrs["vals"],
-        arrs["lane"],
-        arrs["ends"],
-        arrs["starts"],
-    )
-    if pack == "per_rb":
-        y2d = jnp.sum(y2d, axis=1)
-    # blocks with no slabs were never visited -> mask to zero
-    y2d = jnp.where(arrs["rb_mask"][:, None] > 0, y2d, 0.0)
-    return y2d.reshape(-1)[:rows]
-
-
-def _lanepack_reference(arrs, x2d, *, rows: int, kw: int):
-    """Pure-XLA evaluation of a LanePack plan (semantics oracle for the
-    Pallas kernel; also the CPU execution path)."""
     s8 = arrs["vals"].shape[0] * SUBLANES
     vals = arrs["vals"].reshape(s8, LANES)
     lane = arrs["lane"].reshape(s8, LANES).astype(jnp.int32)
@@ -269,18 +115,10 @@ def _lanepack_reference(arrs, x2d, *, rows: int, kw: int):
     return y2d.reshape(-1)[:rows]
 
 
-# floats; x must be VMEM-resident in these kernels. The binding constraint
-# was Mosaic's 16 MB DEFAULT scoped-vmem stack (an x operand beyond ~15 MB
-# failed AOT compilation — hit at 4.2M cols by Poisson 2048^2's
-# prolongators, which is why this sat at 3.5M through round 4); the three
-# general kernels now raise vmem_limit_bytes to 100 MB like BELL, so the
-# caps are set by the JOINT budget: x (4B/col) + worst-kernel y (aligned
-# nbuf=2: 8B/row) <= 72 MB at both caps, comfortably under the limit.
-# Fewer, larger shards also cut operator planning time ~linearly in shard
-# count (the round-4 caps split a 2048^2 AmgRefresh selection operator
-# into ~80 leaves and re-planned each). SpmvOperator column-splits wider
-# operators automatically; per_rb lanepack packing (32B/row of y) gets its
-# own budget gate in plan_lanepack.
+# plan-size limit (columns) of the LanePack/aligned/stripe plans:
+# SpmvOperator column-splits wider general operators into shards, which
+# bounds each plan and its planning time. Inherited from the first
+# target's on-chip memory budget; not re-tuned for the GPU.
 _VMEM_X_LIMIT = 10_000_000
 
 
@@ -310,21 +148,21 @@ def _cast_x(x, plan_dtype, allow_downcast):
 
 
 def spmv_lanepack(plan: LanePackPlan, x, *, device_arrays=None, allow_downcast=False):
-    """y = A @ x via the LanePack Pallas kernel.
+    """y = A @ x over a LanePack plan.
 
-    The kernel keeps x fully VMEM-resident; operators wider than
-    ~24M columns need the ELL path or mesh sharding (see parallel/).
+    Plans are bounded by the slab-count and column plan-size limits;
+    SpmvOperator shards larger operators automatically.
     """
     if plan.num_slabs * 8 * 4 > 900_000:
         raise ValueError(
-            f"LanePack plan has {plan.num_slabs} slabs; its scalar-prefetch "
-            "arrays exceed the 1 MB SMEM budget — use the ELL path or "
-            "SpmvOperator (which guards this automatically)"
+            f"LanePack plan has {plan.num_slabs} slabs, over the plan-size "
+            "limit — use the ELL path or SpmvOperator (which guards this "
+            "automatically)"
         )
     if plan.cols > _VMEM_X_LIMIT:
         raise ValueError(
-            f"LanePack keeps x in VMEM; cols={plan.cols} exceeds the "
-            f"{_VMEM_X_LIMIT} limit — use spmv_ell_xla or shard over a mesh"
+            f"LanePack plan has cols={plan.cols}, over the "
+            f"{_VMEM_X_LIMIT} plan-size limit — use spmv_ell_xla or shard"
         )
     arrs = device_arrays if device_arrays is not None else lanepack_device_arrays(plan)
     x = _cast_x(x, plan.dtype, allow_downcast)
@@ -334,55 +172,17 @@ def spmv_lanepack(plan: LanePackPlan, x, *, device_arrays=None, allow_downcast=F
         rows=plan.rows,
         cols=plan.cols,
         kw=plan.kw,
-        b=arrs["b"],
-        interpret=_interpret(),
-        pack=plan.pack,
     )
 
 
 # ---------------------------------------------------------------------------
-# Aligned kernel (destination-aligned slots; formats/aligned.py)
+# Aligned slabs (destination-aligned slots; formats/aligned.py)
 # ---------------------------------------------------------------------------
 
 
-def _make_aligned_kernel(b: int, nbuf: int = 2):
-    """Aligned slabs: products are already per-row contributions (slot lane
-    == row % 128), so the kernel is loads + one lane gather + multiply +
-    two-target accumulation. ``nbuf`` alternating y buffers break the serial
-    read-modify-write chain (summed by the caller). Measured v5e: 42.4
-    Gnnz/s on Poisson 512^2 at fill 0.77 vs 26.3 for the general kernel
-    (experiments/aligned_spmv.py)."""
-    from jax.experimental import pallas as pl
-
-    def kernel(rb_a_ref, rb_b_ref, split_ref, col_off_ref, x_ref, vals_ref, lane_ref, y_ref):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            y_ref[...] = jnp.zeros_like(y_ref)
-
-        base = i * b * SUBLANES
-        xw = jnp.concatenate(
-            [x_ref[pl.ds(col_off_ref[base + j], 1), :] for j in range(b * SUBLANES)],
-            axis=0,
-        )
-        lane = lane_ref[...].reshape(b * SUBLANES, LANES).astype(jnp.int32)
-        p = vals_ref[...].reshape(b * SUBLANES, LANES) * jnp.take_along_axis(xw, lane, axis=1)
-        sub_iota = jax.lax.broadcasted_iota(jnp.int32, (SUBLANES, LANES), 0)
-        for bb in range(b):
-            c8 = p[bb * SUBLANES : (bb + 1) * SUBLANES]
-            total = jnp.sum(c8, axis=0, keepdims=True)
-            sp = split_ref[i * b + bb]
-            pa = jnp.sum(jnp.where(sub_iota < sp, c8, 0.0), axis=0, keepdims=True)
-            buf = bb % nbuf
-            y_ref[buf, pl.ds(rb_a_ref[i * b + bb], 1), :] += pa
-            y_ref[buf, pl.ds(rb_b_ref[i * b + bb], 1), :] += total - pa
-
-    return kernel
-
-
-# scalar-prefetch SMEM budget: rb_a/rb_b/split (4B each) + col_off
-# (8 x 4B) per slab = 44 B/slab against the ~1 MB SMEM; segment above this
+# plan-size limit: aligned plans above this many slabs are applied as
+# uniform segments of at most this size (one compilation, partial y's
+# summed). Inherited from the first target's on-chip scalar-memory budget.
 _SMEM_SLAB_SEGMENT = 16384
 
 
@@ -391,7 +191,7 @@ def aligned_device_arrays(plan, *, b: Optional[int] = None):
     to whole B-slab steps; includes the spill sub-plan's arrays when one
     exists.
 
-    Plans beyond the SMEM scalar-prefetch budget are split into uniform
+    Plans beyond the segment limit are split into uniform
     slab segments (key ``"segments"``): one kernel compilation, several
     calls per apply, partial y's summed by :func:`spmv_aligned`."""
     b = b if b is not None else _pick_b(plan.num_slabs)
@@ -437,53 +237,13 @@ def aligned_device_arrays(plan, *, b: Optional[int] = None):
     return arrs
 
 
-@functools.partial(jax.jit, static_argnames=("rows", "cols", "b", "nbuf", "interpret"))
-def _spmv_aligned_jit(arrs, x, *, rows: int, cols: int, b: int, nbuf: int, interpret: bool):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    r128 = -(-rows // LANES)
+@functools.partial(jax.jit, static_argnames=("rows", "cols"))
+def _spmv_aligned_jit(arrs, x, *, rows: int, cols: int):
+    """XLA evaluation of an aligned plan: per-chunk contributions
+    scatter-added by chunk row block."""
     c128 = -(-cols // LANES)
-    num_slabs = arrs["vals"].shape[0]
     xpad = jnp.zeros((c128 + 1) * LANES, x.dtype).at[: x.shape[0]].set(x)
     x2d = xpad.reshape(c128 + 1, LANES)
-
-    if interpret:
-        return _aligned_reference(arrs, x2d, rows=rows)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(num_slabs // b,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)]
-        + [pl.BlockSpec((b, SUBLANES, LANES), lambda i, *refs: (i, 0, 0))] * 2,
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-    )
-    y = pl.pallas_call(
-        _make_aligned_kernel(b, nbuf),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nbuf, r128, LANES), x.dtype),
-        # x + nbuf y planes VMEM-resident: see the lanepack call's note —
-        # the 16 MB default scoped limit OOMs near the split caps
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-    )(
-        arrs["rb_a"],
-        arrs["rb_b"],
-        arrs["split"],
-        arrs["col_off"],
-        x2d,
-        arrs["vals"],
-        arrs["lane"],
-    )
-    y = jnp.sum(y, axis=0)
-    y = jnp.where(arrs["rb_mask"][:, None] > 0, y, 0.0)
-    return y.reshape(-1)[:rows]
-
-
-def _aligned_reference(arrs, x2d, *, rows: int):
-    """Pure-XLA evaluation of an aligned plan (CPU path + semantics oracle:
-    per-chunk contributions scatter-added by chunk row block)."""
     s8 = arrs["vals"].shape[0] * SUBLANES
     vals = arrs["vals"].reshape(s8, LANES)
     lane = arrs["lane"].reshape(s8, LANES).astype(jnp.int32)
@@ -497,17 +257,16 @@ def _aligned_reference(arrs, x2d, *, rows: int):
 
 
 def spmv_aligned(plan, x, *, device_arrays=None, allow_downcast=False):
-    """y = A @ x via the aligned kernel (+ the general kernel on the spill
-    sub-plan when the plan has one). Plans beyond the SMEM budget run as
-    several uniform slab segments (one compilation). See formats/aligned.py."""
+    """y = A @ x over an aligned plan (+ LanePack on the spill sub-plan
+    when the plan has one). Plans beyond the segment limit run as several
+    uniform slab segments (one compilation). See formats/aligned.py."""
     if plan.cols > _VMEM_X_LIMIT:
         raise ValueError(
-            f"aligned kernel keeps x in VMEM; cols={plan.cols} exceeds "
-            f"{_VMEM_X_LIMIT} — use spmv_ell_xla or shard over a mesh"
+            f"aligned plan has cols={plan.cols}, over the {_VMEM_X_LIMIT} "
+            "plan-size limit — use spmv_ell_xla or shard"
         )
     arrs = device_arrays if device_arrays is not None else aligned_device_arrays(plan)
     x = _cast_x(x, plan.dtype, allow_downcast)
-    interp = _interpret()
 
     def one(seg):
         return _spmv_aligned_jit(
@@ -515,9 +274,6 @@ def spmv_aligned(plan, x, *, device_arrays=None, allow_downcast=False):
             x,
             rows=plan.rows,
             cols=plan.cols,
-            b=arrs["b"],
-            nbuf=2,
-            interpret=interp,
         )
 
     if "segments" in arrs:
@@ -536,106 +292,13 @@ def spmv_aligned(plan, x, *, device_arrays=None, allow_downcast=False):
             rows=plan.rows,
             cols=plan.cols,
             kw=plan.spill.kw,
-            b=sp_arrs["b"],
-            interpret=interp,
-            pack=plan.spill.pack,
         )
     return y
 
 
 # ---------------------------------------------------------------------------
-# Stripe kernel (multi-level destinations; formats/stripe.py)
+# Stripe slabs (multi-level destinations; formats/stripe.py)
 # ---------------------------------------------------------------------------
-
-
-def _lane_cumsum_mxu_both(p: jnp.ndarray):
-    """(inclusive, exclusive) lane prefix sums from ONE (128,256) MXU
-    matmul — the exclusive scan lets boundary gathers run unmasked: a run
-    [h, t] contributes ``incl[t] - excl[h]`` and the empty-run default
-    (ends=0, starts+1=1) cancels exactly, so the stripe kernel's per-level
-    ``where(starts<0)``/``maximum`` ops vanish."""
-    rowi = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 0)
-    coli = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 1)
-    tri_incl = jnp.where(rowi <= coli, 1.0, 0.0).astype(p.dtype)
-    tri_excl = jnp.where(rowi < coli, 1.0, 0.0).astype(p.dtype)
-    both = jnp.concatenate([tri_incl, tri_excl], axis=1)
-    c2 = jnp.dot(
-        p, both, preferred_element_type=p.dtype,
-        precision=jax.lax.Precision.HIGHEST)
-    return c2[:, :LANES], c2[:, LANES:]
-
-
-def _make_stripe_kernel(b: int, lvl: int, kw: int, scan: bool,
-                        nbuf: int = 2):
-    """Stripe slabs: 8 chunks share one stripe of ``lvl`` row blocks; each
-    chunk reads ONE ``kw``*128-col x window. Scan mode: products
-    prefix-sum on the MXU (inclusive+exclusive in one matmul) and per
-    level two unmasked boundary gathers take ``incl[end] - excl[start]``.
-    Select mode (col-sorted chunks, one entry per (dst,level) per chunk):
-    the per-level contribution is a single ``take_along(p, ends)`` — no
-    scan, no starts stream (slot 0 is a reserved zero). Level sums stack
-    to an (lvl,128) tile, ONE dynamic y add per slab. Breaks the
-    one-row-block-per-chunk cell bound that capped fill at ~0.25 on
-    scattered matrices (see formats/stripe.py)."""
-    from jax.experimental import pallas as pl
-
-    def kernel(stripe_rb_ref, col_off_ref, x_ref, vals_ref, lane_ref,
-               *rest):
-        if scan:
-            ends_ref, starts_ref, y_ref = rest
-        else:
-            ends_ref, y_ref = rest
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            y_ref[...] = jnp.zeros_like(y_ref)
-
-        base = i * b * SUBLANES
-        xw = jnp.concatenate(
-            [x_ref[pl.ds(col_off_ref[base + j], kw), :]
-             for j in range(b * SUBLANES)],
-            axis=0,
-        ).reshape(b * SUBLANES, kw, LANES)
-        lane = lane_ref[...].reshape(b * SUBLANES, LANES).astype(jnp.int32)
-        v = vals_ref[...].reshape(b * SUBLANES, LANES)
-        if kw == 1:
-            xg = jnp.take_along_axis(xw[:, 0, :], lane, axis=1)
-        else:
-            sub = jax.lax.shift_right_logical(lane, 7)
-            l = jax.lax.bitwise_and(lane, 127)
-            xg = jnp.zeros_like(v)
-            for k in range(kw):
-                g = jnp.take_along_axis(xw[:, k, :], l, axis=1)
-                xg = xg + jnp.where(sub == k, g, 0.0)
-        p = v * xg
-        if scan:
-            incl, excl = _lane_cumsum_mxu_both(p)
-        # level extraction VECTORIZED over the whole slab tile (per-chunk
-        # slicing in the b-loop measured 45-69 ns/slab, experiments/
-        # stripe_bench.out first sweep); the b-loop below only reassembles
-        # per-slab (lvl,128) tiles and accumulates
-        levels = []
-        for l in range(lvl):
-            ends = ends_ref[:, l].reshape(b * SUBLANES, LANES).astype(
-                jnp.int32)
-            if scan:
-                h = starts_ref[:, l].reshape(b * SUBLANES, LANES).astype(
-                    jnp.int32) + 1
-                g = (jnp.take_along_axis(incl, ends, axis=1)
-                     - jnp.take_along_axis(excl, h, axis=1))
-            else:
-                g = jnp.take_along_axis(p, ends, axis=1)
-            # per-slab sublane reduction: (b,8,128) -> (b,128)
-            levels.append(jnp.sum(
-                g.reshape(b, SUBLANES, LANES), axis=1))
-        contrib_all = jnp.stack(levels, axis=1)  # (b, lvl, 128)
-        for bb in range(b):
-            buf = bb % nbuf
-            y_ref[buf, pl.ds(stripe_rb_ref[i * b + bb], lvl), :] += (
-                contrib_all[bb])
-
-    return kernel
 
 
 def stripe_device_arrays(plan, *, b: Optional[int] = None):
@@ -676,60 +339,14 @@ def stripe_device_arrays(plan, *, b: Optional[int] = None):
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=("rows", "cols", "lvl", "kw", "scan", "b", "nbuf",
-                     "interpret"))
+    jax.jit, static_argnames=("rows", "cols", "lvl", "kw", "scan"))
 def _spmv_stripe_jit(arrs, x, *, rows: int, cols: int, lvl: int, kw: int,
-                     scan: bool, b: int, nbuf: int, interpret: bool):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
+                     scan: bool):
+    """XLA evaluation of a stripe plan: per level, the run sums of each
+    chunk scatter-added to the level's row block."""
     c128 = -(-cols // LANES)
-    num_slabs = arrs["vals"].shape[0]
     xpad = jnp.zeros((c128 + kw) * LANES, x.dtype).at[: x.shape[0]].set(x)
     x2d = xpad.reshape(c128 + kw, LANES)
-
-    if interpret:
-        return _stripe_reference(arrs, x2d, rows=rows, lvl=lvl, kw=kw,
-                                 scan=scan)
-
-    r128p = arrs["rb_mask"].shape[0]
-    n_lvl_ops = 2 if scan else 1
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(num_slabs // b,),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)]
-        + [pl.BlockSpec((b, SUBLANES, LANES), lambda i, *refs: (i, 0, 0))] * 2
-        + [pl.BlockSpec((b, lvl, SUBLANES, LANES),
-                        lambda i, *refs: (i, 0, 0, 0))] * n_lvl_ops,
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-    )
-    ops = [arrs["ends"]] + ([arrs["starts"]] if scan else [])
-    y = pl.pallas_call(
-        _make_stripe_kernel(b, lvl, kw, scan, nbuf),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nbuf, r128p, LANES), x.dtype),
-        # x + nbuf y planes VMEM-resident: see the lanepack call's note —
-        # the 16 MB default scoped limit OOMs near the split caps
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-    )(
-        arrs["stripe_rb"],
-        arrs["col_off"],
-        x2d,
-        arrs["vals"],
-        arrs["lane"],
-        *ops,
-    )
-    y = jnp.sum(y, axis=0)
-    y = jnp.where(arrs["rb_mask"][:, None] > 0, y, 0.0)
-    return y.reshape(-1)[:rows]
-
-
-def _stripe_reference(arrs, x2d, *, rows: int, lvl: int, kw: int,
-                      scan: bool):
-    """Pure-XLA evaluation of a stripe plan (CPU path + semantics oracle)."""
     s8 = arrs["vals"].shape[0] * SUBLANES
     vals = arrs["vals"].reshape(s8, LANES)
     lane = arrs["lane"].reshape(s8, LANES).astype(jnp.int32)
@@ -745,11 +362,11 @@ def _stripe_reference(arrs, x2d, *, rows: int, lvl: int, kw: int,
     for l in range(lvl):
         e = ends[:, l].astype(jnp.int32)
         if scan:
-            s = starts[:, l].astype(jnp.int32)
+            st = starts[:, l].astype(jnp.int32)
             g_end = jnp.take_along_axis(c, e, axis=1)
             g_start = jnp.where(
-                s < 0, 0.0,
-                jnp.take_along_axis(c, jnp.maximum(s, 0), axis=1))
+                st < 0, 0.0,
+                jnp.take_along_axis(c, jnp.maximum(st, 0), axis=1))
             g = g_end - g_start
         else:
             g = jnp.take_along_axis(p, e, axis=1)
@@ -760,21 +377,19 @@ def _stripe_reference(arrs, x2d, *, rows: int, lvl: int, kw: int,
 
 
 def spmv_stripe(plan, x, *, device_arrays=None, allow_downcast=False):
-    """y = A @ x via the stripe kernel (multi-level destinations; the
-    no-locality path) + the LanePack kernel on the collision spill when
-    the plan has one. See formats/stripe.py for the design."""
+    """y = A @ x over a stripe plan (multi-level destinations; the
+    no-locality path) + the stripe plan of the collision spill when the
+    plan has one. See formats/stripe.py for the design."""
     if plan.cols > _VMEM_X_LIMIT:
         raise ValueError(
-            f"stripe kernel keeps x in VMEM; cols={plan.cols} exceeds "
-            f"{_VMEM_X_LIMIT} — use spmv_ell_xla or shard over a mesh")
+            f"stripe plan has cols={plan.cols}, over the {_VMEM_X_LIMIT} "
+            "plan-size limit — use spmv_ell_xla or shard")
     if plan.num_slabs * SUBLANES * 4 > 900_000:
         raise ValueError(
-            f"stripe plan has {plan.num_slabs} slabs; scalar-prefetch "
-            "arrays exceed the SMEM budget — use SpmvOperator (guards "
-            "automatically)")
+            f"stripe plan has {plan.num_slabs} slabs, over the plan-size "
+            "limit — use SpmvOperator (guards automatically)")
     arrs = device_arrays if device_arrays is not None else stripe_device_arrays(plan)
     x = _cast_x(x, plan.dtype, allow_downcast)
-    interp = _interpret()
     y = _spmv_stripe_jit(
         {k: v for k, v in arrs.items() if k not in ("b", "spill")},
         x,
@@ -783,9 +398,6 @@ def spmv_stripe(plan, x, *, device_arrays=None, allow_downcast=False):
         lvl=plan.levels,
         kw=plan.kw,
         scan=plan.mode == "scan",
-        b=arrs["b"],
-        nbuf=2,
-        interpret=interp,
     )
     if plan.spill is not None:
         sp_arrs = arrs.get("spill")
@@ -797,7 +409,7 @@ def spmv_stripe(plan, x, *, device_arrays=None, allow_downcast=False):
 
 
 # ---------------------------------------------------------------------------
-# XLA ELL fallback
+# Padded ELL
 # ---------------------------------------------------------------------------
 
 

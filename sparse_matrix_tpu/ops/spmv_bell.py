@@ -1,24 +1,14 @@
-"""BELL streaming SpMV kernel (formats/bell.py — round-3 general path).
+"""BELL SpMV (formats/bell.py — the streaming general path).
 
-The streaming-DIA recipe (ops/spmv_dia.py, 875 GB/s measured) applied to
-general matrices: the grid walks groups of ``BR`` 128-row blocks; per step
-the BlockSpec pipeline streams
-
-* the ``(L, BR, 128)`` value planes + int8 lane planes (640 B per
-  (layer, row-block) chunk), and
-* ONE overlapping x window ``(lo + BR + hi, 128)``, element-indexed at row
-  ``i * BR`` — consecutive steps re-read the halo, exactly like the DIA
-  kernel's window.
-
-Per layer the kernel reads the layer's 256-wide x window as two adjacent
-STATIC slices of the streamed block (``d`` is compile-time; see
-formats/bell.py _layer_keys for the v2 window assignment), one or two
-in-row lane gathers (by the planner's per-layer mode — a layer whose
-positions stay in one 128-half needs a single gather), one fma; y is
-written once per step. There is no
-scalar prefetch and nothing VMEM-resident across steps, so the kernel has
-no SMEM slab budget and no rows/cols wall — it covers the giant operators
-that previously forced colsplit/rowsplit (ops/operator.py).
+The plan stores ``L`` layers of value planes and int8 lane planes over
+128-row blocks; layer ``l`` reads its 256-wide x window starting at block
+offset ``d_l`` (compile-time; see formats/bell.py _layer_keys). Per layer:
+one or two static row-shifted slices of the padded 2-D x view (by the
+planner's per-layer mode — a layer whose positions stay in one 128-half
+needs a single slice), an in-row lane gather, one fma. No scatter, no
+per-slab index arrays, so BELL has no slab-count limit: it covers the
+giant operators that would otherwise need colsplit/rowsplit
+(ops/operator.py).
 """
 
 from __future__ import annotations
@@ -35,18 +25,14 @@ from ..formats.lanepack import LANES
 __all__ = ["spmv_bell", "bell_device_arrays"]
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
 def bell_device_arrays(plan: BellPlan, *, br: int | None = None,
                        values_dtype=None):
     """Move a plan's slot planes to device once, row-blocks padded to a
-    whole number of BR-steps (int8 tiling wants BR a multiple of 32).
+    whole number of BR-steps.
 
     ``values_dtype=jnp.bfloat16`` stores the value planes half-width: the
     slot stream drops from 5 B/slot (f32 val + i8 lane) to 3 B/slot; the
-    kernels widen per block and accumulate in the x dtype (f32). The
+    apply widens the planes and accumulates in the x dtype (f32). The
     spill sub-plan (lanepack) keeps f32 values — spill is a tiny nnz
     fraction by construction."""
     from .spmv import lanepack_device_arrays
@@ -77,46 +63,14 @@ def bell_device_arrays(plan: BellPlan, *, br: int | None = None,
     return arrs
 
 
-def _make_bell_kernel(ds: tuple, modes: tuple, span: int, lo: int, br: int):
-    from jax.experimental import pallas as pl
-
-    bias = LANES if span == 128 else 0  # int8 lanes store pos - 128
-
-    def kernel(vals_ref, lane_ref, x_ref, y_ref):
-        acc = jnp.zeros((br, LANES), x_ref.dtype)
-        slices = {}  # absolute window-row offset -> (br, 128) static slice
-        for li, (d, mask) in enumerate(zip(ds, modes)):
-            pos = lane_ref[li].astype(jnp.int32) + bias
-            idx = jnp.bitwise_and(pos, 127)
-            half = jax.lax.shift_right_logical(pos, 7)
-            xg = None
-            for h in range(span // 128 + 1):
-                if not (mask >> h) & 1:
-                    continue
-                off = d + h
-                if off not in slices:
-                    slices[off] = x_ref[pl.ds(lo + off, br), :]
-                g = jnp.take_along_axis(slices[off], idx, axis=1)
-                xg = g if xg is None else jnp.where(half == h, g, xg)
-            v = vals_ref[li]
-            if v.dtype != acc.dtype:  # bf16 planes: widen, f32 accumulate
-                v = v.astype(acc.dtype)
-            acc = acc + v * xg
-        y_ref[...] = acc
-
-    return kernel
-
-
 @functools.partial(
     jax.jit,
-    static_argnames=("ds", "modes", "span", "rows", "cols", "br", "interpret"),
+    static_argnames=("ds", "modes", "span", "rows", "cols", "br"),
 )
 def _spmv_bell_jit(
     vals, lane, x, *, ds: tuple, modes: tuple, span: int, rows: int,
-    cols: int, br: int, interpret: bool
+    cols: int, br: int
 ):
-    from jax.experimental import pallas as pl
-
     r128p = vals.shape[1]
     c128 = -(-cols // LANES)
     nh = span // 128 + 1  # 128-halves per layer window
@@ -139,58 +93,33 @@ def _spmv_bell_jit(
         axis=0,
     )
 
-    bias = LANES if span == 128 else 0
-    if interpret:
-        # non-TPU backends: the same math as vectorized XLA (per-layer
-        # static slices + lane gathers) — semantics oracle for the kernel
-        y2 = jnp.zeros((r128p, LANES), x.dtype)
-        for li, (d, mask) in enumerate(zip(ds, modes)):
-            pos = lane[li].astype(jnp.int32) + bias
-            idx = jnp.bitwise_and(pos, 127)
-            half = jax.lax.shift_right_logical(pos, 7)
-            xg = None
-            for h in range(nh):
-                if not (mask >> h) & 1:
-                    continue
-                a = jax.lax.slice_in_dim(
-                    x2d, lo + d + h, lo + d + h + r128p, axis=0
-                )
-                g = jnp.take_along_axis(a, idx, axis=1)
-                xg = g if xg is None else jnp.where(half == h, g, xg)
-            y2 = y2 + vals[li].astype(x.dtype) * xg
-        return y2.reshape(-1)[:rows]
-
-    L = len(ds)
-    from jax.experimental.pallas import tpu as pltpu
-
-    y2 = pl.pallas_call(
-        _make_bell_kernel(ds, modes, span, lo, br),
-        grid=(r128p // br,),
-        in_specs=[
-            pl.BlockSpec((L, br, LANES), lambda i: (0, i, 0)),
-            pl.BlockSpec((L, br, LANES), lambda i: (0, i, 0)),
-            pl.BlockSpec(
-                (pl.Element(win_rows), pl.Element(LANES)), lambda i: (i * br, 0)
-            ),
-        ],
-        out_specs=pl.BlockSpec((br, LANES), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((r128p, LANES), x.dtype),
-        # default scoped-vmem limit is 16 MB; v5e has 128 MB — raising it
-        # unlocks br=512 at L>12 (br=512 measured 2.6x faster per chunk
-        # than 256, experiments/bell_br_sweep.out)
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024),
-    )(vals, lane, x2d)
+    bias = LANES if span == 128 else 0  # int8 lanes store pos - 128
+    y2 = jnp.zeros((r128p, LANES), x.dtype)
+    for li, (d, mask) in enumerate(zip(ds, modes)):
+        pos = lane[li].astype(jnp.int32) + bias
+        idx = jnp.bitwise_and(pos, 127)
+        half = jax.lax.shift_right_logical(pos, 7)
+        xg = None
+        for h in range(nh):
+            if not (mask >> h) & 1:
+                continue
+            a = jax.lax.slice_in_dim(
+                x2d, lo + d + h, lo + d + h + r128p, axis=0
+            )
+            g = jnp.take_along_axis(a, idx, axis=1)
+            xg = g if xg is None else jnp.where(half == h, g, xg)
+        # bf16 planes: widen, f32 accumulate
+        y2 = y2 + vals[li].astype(x.dtype) * xg
     return y2.reshape(-1)[:rows]
 
 
 def spmv_bell(plan: BellPlan, x, *, device_arrays=None, allow_downcast=False):
-    """y = A @ x via the BELL streaming kernel (+ the general kernel on the
-    spill sub-plan when the plan has one)."""
+    """y = A @ x over a BELL plan (+ LanePack on the spill sub-plan when
+    the plan has one)."""
     from .spmv import _cast_x, _spmv_lanepack_jit
 
     arrs = device_arrays if device_arrays is not None else bell_device_arrays(plan)
     x = _cast_x(x, plan.dtype, allow_downcast)
-    interp = _interpret()
     if plan.num_layers:
         y = _spmv_bell_jit(
             arrs["vals"],
@@ -202,7 +131,6 @@ def spmv_bell(plan: BellPlan, x, *, device_arrays=None, allow_downcast=False):
             rows=plan.rows,
             cols=plan.cols,
             br=arrs["br"],
-            interpret=interp,
         )
     else:
         y = jnp.zeros(plan.rows, dtype=plan.dtype)
@@ -218,8 +146,5 @@ def spmv_bell(plan: BellPlan, x, *, device_arrays=None, allow_downcast=False):
             rows=plan.rows,
             cols=plan.cols,
             kw=plan.spill.kw,
-            b=sp["b"],
-            interpret=interp,
-            pack=plan.spill.pack,
         )
     return y

@@ -40,79 +40,42 @@ def dia_device_arrays(m: DiaMatrix, *, values_dtype=None):
     return dict(data=data)
 
 
-# above this band-data size the working set cannot stay VMEM-resident and
-# the stacked single-reduction form measures 1.31x the slice-accumulate
-# chain (Poisson 2048^2, 84 MB: 879 -> 672 us; experiments/dia_large.out —
-# both remain far under the HBM roofline, the recorded wall of the XLA
-# path in this regime)
-_DIA_STACK_BYTES = 48 * 1024 * 1024
-
-
 @functools.partial(jax.jit, static_argnames=("offsets", "rows", "cols"))
 def _spmv_dia_jit(data, x, *, offsets: tuple, rows: int, cols: int):
-    nb = len(offsets)
     lo = -min(0, min(offsets))
     hi = max(0, max(offsets)) + max(rows, cols)
     xpad = jnp.zeros(lo + hi, x.dtype).at[lo : lo + x.shape[0]].set(x)
     if data.dtype != x.dtype:  # bf16 value planes: widen, f32 accumulate
         data = data.astype(x.dtype)
-    if nb * rows * x.dtype.itemsize > _DIA_STACK_BYTES:
-        wins = jnp.stack(
-            [jax.lax.dynamic_slice(xpad, (lo + off,), (rows,)) for off in offsets]
-        )
-        return jnp.sum(data * wins, axis=0)
     y = jnp.zeros(rows, x.dtype)
     for b, off in enumerate(offsets):
         y = y + data[b] * jax.lax.dynamic_slice(xpad, (lo + off,), (rows,))
     return y
 
 
-# -- Pallas streaming kernel for band data beyond VMEM ----------------------
+def spmv_dia(m: DiaMatrix, x, *, device_arrays=None):
+    arrs = device_arrays if device_arrays is not None else dia_device_arrays(m)
+    x = jnp.asarray(x)
+    return _spmv_dia_jit(arrs["data"], x, offsets=m.offsets, rows=m.rows, cols=m.cols)
+
+
+# -- packed DIA SpMM: K right-hand sides in ONE pass over the bands --------
 #
-# The XLA path walls at ~175 GB/s effective once the working set spills
-# VMEM (experiments/dia_large.out). This kernel keeps x VMEM-RESIDENT
-# (x is rows*4 bytes — 16 MB even at 4M rows — while the band data is
-# nb times that) and STREAMS the data in (nb, BR, 128) blocks; each band
-# offset decomposes into a row shift (whole 128-lane rows of the 2-D x
-# view) plus a lane shift r realized as a two-view lane concatenation —
-# no gathers, no scatters, every access a contiguous slice.
+# The per-column loop re-reads the band planes K times. The packed form
+# lays X out as (lo + rpad + hi, K, 128) planes of 128 rows: each band
+# offset becomes a row shift (whole planes) plus a lane shift realized as
+# a two-view lane concatenation, broadcast over the K axis, so the band
+# data is read once for all K columns.
 
-_DIA_PALLAS_BR = 512  # rows of 128 lanes per grid step (256 KB/band/step)
-
-
-def _make_dia_kernel(offsets, lo_rows: int, br: int, nb: int):
-    from jax.experimental import pallas as pl
-
-    def kernel(data_ref, x_ref, y_ref):
-        # x_ref is this step's WINDOW (lo_rows + br + hi_rows, 128): rows
-        # [i*br, ...) of the padded x2d, element-indexed by the BlockSpec —
-        # x itself stays in HBM and only ~br*128 floats stream per step
-        # (the whole-x-VMEM variant blew the 16 MB scoped-vmem stack once
-        # embedded in larger programs like the AMG V-cycle)
-        acc = jnp.zeros((br, 128), x_ref.dtype)
-        for b, off in enumerate(offsets):
-            q, r = off // 128, off % 128  # python divmod: r in [0, 128)
-            a = x_ref[pl.ds(lo_rows + q, br), :]
-            if r == 0:
-                win = a
-            else:
-                bview = x_ref[pl.ds(lo_rows + q + 1, br), :]
-                win = jnp.concatenate([a[:, r:], bview[:, :r]], axis=1)
-            d = data_ref[b]
-            if d.dtype != acc.dtype:  # bf16 planes: widen, f32 accumulate
-                d = d.astype(acc.dtype)
-            acc = acc + d * win
-        y_ref[...] = acc
-
-    return kernel
+# rows of 128 per layout step: rpad (the packed row count) is a multiple
+# of it, and the guard rows round the padded height to a multiple of 8
+_DIA_SPMM_BR = 256
 
 
-def _dia_pallas_blocked_data(data, *, rows: int, br: int = None):
-    """One-time reformat of (nb, rows) band data to the kernel's
-    (nb, rpad, 128) blocked layout — 2x the data bytes in pure copies, so
-    it must NOT sit inside the per-apply jit (measured ~200 us of the
-    356 us apply before it was hoisted)."""
-    br = br if br is not None else _DIA_PALLAS_BR
+def _dia_blocked_data(data, *, rows: int, br: int):
+    """One-time reformat of (nb, rows) band data to the packed
+    (nb, rpad, 128) layout — 2x the data bytes in copies, so it stays out
+    of the per-apply jit."""
     nb = data.shape[0]
     r128 = -(-rows // 128)
     rpad = -(-r128 // br) * br
@@ -120,118 +83,6 @@ def _dia_pallas_blocked_data(data, *, rows: int, br: int = None):
     return dpad.at[:, :r128, :].set(
         jnp.pad(data, ((0, 0), (0, r128 * 128 - data.shape[1]))).reshape(nb, r128, 128)
     )
-
-
-@functools.partial(jax.jit, static_argnames=("offsets", "rows", "interpret", "br"))
-def _spmv_dia_pallas(dpad, x, *, offsets: tuple, rows: int, interpret: bool, br: int = None):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    br = br if br is not None else _DIA_PALLAS_BR
-    nb = dpad.shape[0]
-    r128 = -(-rows // 128)
-    rpad = dpad.shape[1]
-    lo_rows = -min(0, min(offsets)) // 128 + 1  # guard rows before x
-    hi_rows = max(0, max(offsets)) // 128 + 2  # and after (lane concat peeks +1)
-    # Mosaic needs the window's sublane dim divisible by 8: absorb the
-    # round-up into extra (zero) tail guard rows
-    hi_rows += (-(lo_rows + br + hi_rows)) % 8
-
-    # padded 2-D x view: [lo_rows zero rows | x | hi_rows zero rows]
-    xflat = jnp.zeros(rpad * 128, x.dtype).at[:rows].set(x)
-    x2d = jnp.concatenate(
-        [
-            jnp.zeros((lo_rows, 128), x.dtype),
-            xflat.reshape(rpad, 128),
-            jnp.zeros((hi_rows, 128), x.dtype),
-        ],
-        axis=0,
-    )
-
-    win_rows = lo_rows + br + hi_rows
-    y2d = pl.pallas_call(
-        _make_dia_kernel(offsets, lo_rows, br, nb),
-        grid=(rpad // br,),
-        in_specs=[
-            pl.BlockSpec((nb, br, 128), lambda i: (0, i, 0)),
-            # overlapping x windows, element-indexed rows: step i reads
-            # x2d rows [i*br, i*br + win_rows)
-            pl.BlockSpec(
-                (pl.Element(win_rows), pl.Element(128)), lambda i: (i * br, 0)
-            ),
-        ],
-        out_specs=pl.BlockSpec((br, 128), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((rpad, 128), x.dtype),
-        interpret=interpret,
-    )(dpad, x2d)
-    return y2d.reshape(rpad * 128)[:rows]
-
-
-def spmv_dia(m: DiaMatrix, x, *, device_arrays=None):
-    arrs = device_arrays if device_arrays is not None else dia_device_arrays(m)
-    x = jnp.asarray(x)
-    data = arrs["data"]
-    # gate on the f32-EQUIVALENT size: the XLA path's wall is its f32
-    # accumulation working set, which bf16 storage does not shrink — a
-    # bf16 2048^2 operator (42 MB) must still stream through the kernel
-    if (
-        data.size * x.dtype.itemsize > _DIA_STACK_BYTES
-        and m.rows == m.cols
-        and _DIA_PALLAS_BR * 128 <= m.rows <= 24_000_000  # x VMEM-resident
-    ):
-        dpad = arrs.get("data_blocked")
-        if dpad is None:
-            if isinstance(data, jax.core.Tracer):
-                # traced operand (operator passed as a jit argument): the
-                # reformat joins the caller's program; pre-block outside
-                # the jit to pay it once
-                dpad = _dia_pallas_blocked_data(data, rows=m.rows)
-            else:
-                # first use may happen inside a trace: build the cached
-                # constant eagerly or it would leak a tracer into later
-                # traces (same pattern as SpmvOperator._spmm_cache)
-                with jax.ensure_compile_time_eval():
-                    dpad = _dia_pallas_blocked_data(data, rows=m.rows)
-                arrs["data_blocked"] = dpad
-        return _spmv_dia_pallas(
-            dpad, x, offsets=m.offsets, rows=m.rows,
-            interpret=jax.default_backend() != "tpu",
-        )
-    return _spmv_dia_jit(arrs["data"], x, offsets=m.offsets, rows=m.rows, cols=m.cols)
-
-
-# -- streaming DIA SpMM: K right-hand sides in ONE pass over the bands ------
-#
-# The per-column loop re-reads the band planes K times (the dominant HBM
-# stream in the streaming regime). This kernel packs X as (rows2, K, 128)
-# and, per grid step, reads one overlapping element-indexed x window
-# (lo + br + hi, K, 128) plus the (nb, br, 128) band block; each band's
-# window is the same two static slices + lane concatenation as the SpMV
-# kernel, broadcast over the K axis. Band data is read ONCE for all K.
-
-_DIA_SPMM_BR = 256  # (br, K, 128) acc + windows: K<=16 stays under VMEM
-
-
-def _make_dia_spmm_kernel(offsets, lo_rows: int, br: int, nb: int, k: int):
-    from jax.experimental import pallas as pl
-
-    def kernel(data_ref, x_ref, y_ref):
-        acc = jnp.zeros((br, k, 128), y_ref.dtype)
-        for b, off in enumerate(offsets):
-            q, r = off // 128, off % 128
-            a = x_ref[pl.ds(lo_rows + q, br), :, :]
-            if r == 0:
-                win = a
-            else:
-                bview = x_ref[pl.ds(lo_rows + q + 1, br), :, :]
-                win = jnp.concatenate([a[:, :, r:], bview[:, :, :r]], axis=2)
-            d = data_ref[b]
-            if d.dtype != acc.dtype:  # bf16 planes: widen, f32 accumulate
-                d = d.astype(acc.dtype)
-            acc = acc + d[:, None, :] * win
-        y_ref[...] = acc
-
-    return kernel
 
 
 def _dia_stream_geom(offsets: tuple, br: int):
@@ -243,62 +94,32 @@ def _dia_stream_geom(offsets: tuple, br: int):
     return lo_rows, hi_rows
 
 
-@functools.partial(
-    jax.jit, static_argnames=("offsets", "k", "interpret", "br")
-)
-def _spmm_dia_stream_packed(dpad, x3, *, offsets: tuple, k: int,
-                            interpret: bool, br: int):
+@functools.partial(jax.jit, static_argnames=("offsets", "k", "br"))
+def _spmm_dia_stream_packed(dpad, x3, *, offsets: tuple, k: int, br: int):
     """Packed-layout core: x3 (lo+rpad+hi, K, 128) -> y3 (rpad, K, 128).
     Iterative block solvers stay in this layout (dia_matvec_multi), so
     the (rows,K)<->packed transposes are paid once per solve, not per
-    apply (measured ~45% of the wrapper's time at 2048^2 K=8)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    nb = dpad.shape[0]
+    apply."""
     rpad = dpad.shape[1]
-    lo_rows, hi_rows = _dia_stream_geom(offsets, br)
-
-    if interpret:
-        # pure-XLA reference of the same math (CPU path + semantics oracle)
-        y3 = jnp.zeros((rpad, k, 128), x3.dtype)
-        for b, off in enumerate(offsets):
-            q, r = off // 128, off % 128
-            a = jax.lax.slice_in_dim(x3, lo_rows + q, lo_rows + q + rpad, axis=0)
-            if r == 0:
-                win = a
-            else:
-                bv = jax.lax.slice_in_dim(
-                    x3, lo_rows + q + 1, lo_rows + q + 1 + rpad, axis=0
-                )
-                win = jnp.concatenate([a[:, :, r:], bv[:, :, :r]], axis=2)
-            y3 = y3 + dpad[b].astype(x3.dtype)[:, None, :] * win
-        return y3
-
-    win_rows = lo_rows + br + hi_rows
-    return pl.pallas_call(
-        _make_dia_spmm_kernel(offsets, lo_rows, br, nb, k),
-        grid=(rpad // br,),
-        in_specs=[
-            pl.BlockSpec((nb, br, 128), lambda i: (0, i, 0)),
-            pl.BlockSpec(
-                (pl.Element(win_rows), pl.Element(k), pl.Element(128)),
-                lambda i: (i * br, 0, 0),
-            ),
-        ],
-        out_specs=pl.BlockSpec((br, k, 128), lambda i: (i, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((rpad, k, 128), x3.dtype),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
-    )(dpad, x3)
+    lo_rows, _hi_rows = _dia_stream_geom(offsets, br)
+    y3 = jnp.zeros((rpad, k, 128), x3.dtype)
+    for b, off in enumerate(offsets):
+        q, r = off // 128, off % 128  # python divmod: r in [0, 128)
+        a = jax.lax.slice_in_dim(x3, lo_rows + q, lo_rows + q + rpad, axis=0)
+        if r == 0:
+            win = a
+        else:
+            bv = jax.lax.slice_in_dim(
+                x3, lo_rows + q + 1, lo_rows + q + 1 + rpad, axis=0
+            )
+            win = jnp.concatenate([a[:, :, r:], bv[:, :, :r]], axis=2)
+        # bf16 planes: widen, f32 accumulate
+        y3 = y3 + dpad[b].astype(x3.dtype)[:, None, :] * win
+    return y3
 
 
-@functools.partial(
-    jax.jit, static_argnames=("offsets", "rows", "k", "interpret", "br")
-)
-def _spmm_dia_stream(dpad, x, *, offsets: tuple, rows: int, k: int,
-                     interpret: bool, br: int):
+@functools.partial(jax.jit, static_argnames=("offsets", "rows", "k", "br"))
+def _spmm_dia_stream(dpad, x, *, offsets: tuple, rows: int, k: int, br: int):
     rpad = dpad.shape[1]
     lo_rows, hi_rows = _dia_stream_geom(offsets, br)
     xpack = jnp.zeros((rpad * 128, k), x.dtype).at[: x.shape[0], :].set(x)
@@ -310,17 +131,15 @@ def _spmm_dia_stream(dpad, x, *, offsets: tuple, rows: int, k: int,
         ],
         axis=0,
     )
-    y3 = _spmm_dia_stream_packed(
-        dpad, x3, offsets=offsets, k=k, interpret=interpret, br=br
-    )
+    y3 = _spmm_dia_stream_packed(dpad, x3, offsets=offsets, k=k, br=br)
     return y3.transpose(0, 2, 1).reshape(rpad * 128, k)[:rows]
 
 
 def spmm_dia_stream(m: DiaMatrix, x, *, device_arrays=None, br: int = None):
-    """``Y = A @ X`` (X is (cols, K), 2 <= K <= 16) through the streaming
-    kernel: band planes read ONCE for all K columns. Square streaming-
-    regime operators only — callers outside that regime use
-    :func:`~sparse_matrix_tpu.ops.spmm.spmm_dia` (XLA shifted slices)."""
+    """``Y = A @ X`` (X is (cols, K), 2 <= K <= 16) through the packed
+    layout: band planes read ONCE for all K columns. Square operators
+    only; :func:`~sparse_matrix_tpu.ops.spmm.spmm_dia` (shifted slices of
+    X) covers the rest."""
     arrs = device_arrays if device_arrays is not None else dia_device_arrays(m)
     x = jnp.asarray(x)
     k = int(x.shape[1])
@@ -330,33 +149,31 @@ def spmm_dia_stream(m: DiaMatrix, x, *, device_arrays=None, br: int = None):
         raise ValueError("spmm_dia_stream: square operators only")
     br = br if br is not None else _DIA_SPMM_BR
     dpad = _dia_blocked_for(m, arrs, br)
-    return _spmm_dia_stream(
-        dpad, x, offsets=m.offsets, rows=m.rows, k=k,
-        interpret=jax.default_backend() != "tpu", br=br,
-    )
+    return _spmm_dia_stream(dpad, x, offsets=m.offsets, rows=m.rows, k=k, br=br)
 
 
 def _dia_blocked_for(m: DiaMatrix, arrs, br: int):
-    """Blocked (nb, rpad, 128) band data at a step size dividing rpad,
-    cached per br in the device-array dict (concrete operands only)."""
+    """Blocked (nb, rpad, 128) band data for step size ``br``, cached per
+    br in the device-array dict (concrete operands only)."""
     data = arrs["data"]
-    dpad = arrs.get("data_blocked")
-    if dpad is not None and dpad.shape[1] % br == 0:
-        return dpad
     key = f"data_blocked_br{br}"
     dpad = arrs.get(key)
     if dpad is None:
         if isinstance(data, jax.core.Tracer):
-            dpad = _dia_pallas_blocked_data(data, rows=m.rows, br=br)
+            # traced operand (operator passed as a jit argument): the
+            # reformat joins the caller's program
+            dpad = _dia_blocked_data(data, rows=m.rows, br=br)
         else:
+            # first use may happen inside a trace: build the cached
+            # constant eagerly or it would leak a tracer into later traces
             with jax.ensure_compile_time_eval():
-                dpad = _dia_pallas_blocked_data(data, rows=m.rows, br=br)
+                dpad = _dia_blocked_data(data, rows=m.rows, br=br)
             arrs[key] = dpad
     return dpad
 
 
 def dia_pack_rhs(m: DiaMatrix, x, *, br: int = None):
-    """(cols, K) -> the streaming kernel's packed layout
+    """(cols, K) -> the packed layout
     (lo + rpad + hi, K, 128) with zero guard rows; see
     :func:`dia_matvec_multi`."""
     br = br if br is not None else _DIA_SPMM_BR
@@ -387,12 +204,11 @@ def dia_unpack_rhs(m: DiaMatrix, x3, *, br: int = None):
 
 def dia_matvec_multi(m: DiaMatrix, k: int, *, device_arrays=None,
                      values_dtype=None, br: int = None):
-    """Packed-layout multi-RHS matvec closure for a square streaming-
-    regime DIA operator: (lo+rpad+hi, K, 128) -> same shape (guard rows
+    """Packed-layout multi-RHS matvec closure for a square DIA operator: (lo+rpad+hi, K, 128) -> same shape (guard rows
     re-zeroed), ready for ``cg_solve_multi(..., rhs_axis=1)`` — the DIA
     analog of :func:`~sparse_matrix_tpu.ops.spmm.aligned_matvec_multi`.
     Iterates stay packed, so the (rows,K)<->packed transposes (~45% of
-    the one-shot wrapper's time at 2048^2 K=8) are paid once per solve."""
+    the one-shot wrapper) are paid once per solve."""
     if m.rows != m.cols:
         raise ValueError("packed multi-RHS matvec needs a square operator")
     if not (2 <= k <= 16):
@@ -402,12 +218,9 @@ def dia_matvec_multi(m: DiaMatrix, k: int, *, device_arrays=None,
             else dia_device_arrays(m, values_dtype=values_dtype))
     dpad = _dia_blocked_for(m, arrs, br)
     lo_rows, hi_rows = _dia_stream_geom(m.offsets, br)
-    interp = jax.default_backend() != "tpu"
 
     def mv(x3):
-        y3 = _spmm_dia_stream_packed(
-            dpad, x3, offsets=m.offsets, k=k, interpret=interp, br=br
-        )
+        y3 = _spmm_dia_stream_packed(dpad, x3, offsets=m.offsets, k=k, br=br)
         return jnp.concatenate(
             [
                 jnp.zeros((lo_rows, k, 128), y3.dtype),

@@ -16,7 +16,7 @@ Sharding plan per level ``l``:
 * ``P_l`` sharded over FINE rows (prolongation output is fine-sharded),
   ``P_l^T`` over COARSE rows (restriction output is coarse-sharded), so
   level transfers never resharble output; only the gathered operand
-  crosses ICI.
+  crosses the interconnect.
 * The coarsest solve is a replicated small dense ``pinv`` matmul.
 
 Validated on the virtual 8-device CPU mesh (tests) and wired into
@@ -78,13 +78,20 @@ def dist_amg_setup(
     max_levels: int = 12,
     omega: float = 2.0 / 3.0,
     nu: int = 1,
+    coarsening=None,
 ) -> DistAmgHierarchy:
-    """Build the hierarchy on host, shard every level onto the mesh."""
+    """Build the hierarchy on host, shard every level onto the mesh.
+
+    ``coarsening``: a prior ``amg_coarsen(a, ...)`` result to reuse (the
+    host coarsening is the expensive part; sharding it onto several meshes
+    needs it once)."""
     from ..solvers.amg import amg_coarsen
 
-    host_levels, coarse = amg_coarsen(
-        a, theta=theta, coarse_size=coarse_size, max_levels=max_levels
-    )
+    if coarsening is None:
+        coarsening = amg_coarsen(
+            a, theta=theta, coarse_size=coarse_size, max_levels=max_levels
+        )
+    host_levels, coarse = coarsening
     ndev = mesh.devices.size
     levels = []
     vec_sh = NamedSharding(mesh, P(axis))
@@ -127,7 +134,7 @@ def _ell_apply(ev, ec, x_full):
 def dist_vcycle(h: DistAmgHierarchy, r, level: int = 0):
     """One V(nu, nu) cycle on a row-sharded residual (jit-compatible)."""
     if level >= len(h.levels):
-        return h.coarse_inv @ r
+        return jnp.dot(h.coarse_inv, r, precision=jax.lax.Precision.HIGHEST)
     lv = h.levels[level]
     # pre-smooth (weighted Jacobi from x=0): purely local
     x = h.omega * lv.dinv * r

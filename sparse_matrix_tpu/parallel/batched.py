@@ -1,17 +1,17 @@
 """Batch-parallel small systems over the device mesh.
 
 ``ops/batched.py`` solves B same-pattern systems in one device program
-(the TPU answer to the launch-floor regime — docs/PERF.md small-matrix
-note). This module scales that across chips: the BATCH axis is the
+(the answer to the launch-floor regime of small matrices). This module
+scales that across devices: the BATCH axis is the
 parallel axis, sharded over a 1-D mesh. Each device owns B/ndev complete
 systems, so the apply and every CG vector op are fully device-local; the
 only cross-device traffic is the scalar convergence test (``jnp.any``
 over per-lane residuals — one psum of a (B,) bool per iteration, bytes
-that round to nothing against ICI bandwidth).
+that round to nothing against interconnect bandwidth).
 
 This is the batched analog of the reference's data parallelism
 (``/root/reference/spam_csr/src/mul_hash.rs:38-64`` — independent work
-items scheduled over workers); on TPU the scheduling is GSPMD: annotate
+items scheduled over workers); on devices the scheduling is GSPMD: annotate
 the batch sharding, let XLA partition the program.
 """
 

@@ -1,7 +1,7 @@
 """Distributed conjugate gradient over a device mesh.
 
 The "training step" of this framework: one CG iteration = one distributed
-SpMV (all-gather of the direction vector over ICI) + axpy updates on
+SpMV (all-gather of the direction vector between devices) + axpy updates on
 row-sharded vectors + two global reductions (psum). Provided both as an
 explicit ``shard_map`` step (collectives spelled out) and as a jitted
 GSPMD solve (sharding constraints, XLA inserts collectives).

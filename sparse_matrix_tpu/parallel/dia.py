@@ -3,7 +3,7 @@
 Each device owns a contiguous block of rows of every band (``data`` sharded
 on its row axis). A band at offset ``off`` needs ``x[i+off]`` for the local
 rows — a window of the global x that spans at most ``max|off|`` beyond the
-local shard, so the exchange is an all-gather of x over ICI followed by
+local shard, so the exchange is an all-gather of x between devices followed by
 static local slices (halo exchange would be the bandwidth-optimal variant;
 x is small relative to the operator, so the all-gather is fine here).
 """
@@ -72,7 +72,7 @@ def dist_spmv_dia_halo(
 ):
     """Halo-exchange DIA SpMV: each device trades only ``max|offset|``
     boundary elements with its mesh neighbors via ``ppermute`` (two
-    point-to-point ICI hops), instead of all-gathering x. ICI bytes per
+    point-to-point hops), instead of all-gathering x. interconnect bytes per
     apply scale with the bandwidth of the operator, not with N — the right
     exchange for banded operators, where the halo is tiny.
 

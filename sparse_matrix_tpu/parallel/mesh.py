@@ -1,10 +1,12 @@
 """Device mesh construction for multi-chip sharding.
 
 The reference's parallelism is intra-process rayon over row chunks
-(``spam_csr/src/mul_hash.rs:38-64``); the TPU-native equivalent scales over a
+(``spam_csr/src/mul_hash.rs:38-64``); the device equivalent scales over a
 ``jax.sharding.Mesh``: rows are the parallel axis, sharded across devices,
-with XLA collectives (psum / all_gather) over ICI. This module builds the
-meshes; ``parallel.spmv`` / ``parallel.cg`` put them to work.
+with XLA collectives (psum / all_gather; NCCL over NVLink between GPUs).
+Every GPU of a host reaches every other at the same rate, so a mesh is
+just the first n devices in order. This module builds the meshes;
+``parallel.spmv`` / ``parallel.cg`` put them to work.
 """
 
 from __future__ import annotations

@@ -3,13 +3,13 @@
 The 1-D decompositions in :mod:`parallel.spmv` shard rows *or* columns; a
 2-D mesh shards both, the standard scaling shape for large operators
 ("How to Scale Your Model": pick a mesh, annotate shardings, let collectives
-ride ICI). Device (i, j) owns the (i, j) block of A (padded-ELL layout with
+ride the interconnect). Device (i, j) owns the (i, j) block of A (padded-ELL layout with
 block-local column indices), the ``j``-th row-shard of X (replicated over the
 ``rows`` mesh axis), and produces a partial Y block; partials are summed
 over the ``cols`` axis with ``psum``, leaving Y row-sharded (replicated over
 ``cols``).
 
-ICI traffic per apply: one psum of ``rows_pad/nr x F`` over the ``cols``
+interconnect traffic per apply: one psum of ``rows_pad/nr x F`` over the ``cols``
 axis — no all-gather of X at all (X is consumed where it lives). The
 reference has no multi-node capability (SURVEY.md §2.2); this extends its
 FLOP-balanced row-chunking idea (``spam_csr/src/mul_hash.rs:38-64``) to a

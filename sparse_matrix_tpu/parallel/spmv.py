@@ -3,7 +3,7 @@
 Row-parallel decomposition (the multi-chip generalization of the reference's
 FLOP-balanced row chunking, ``spam_csr/src/mul_hash.rs:38-64``): each device
 owns a contiguous block of matrix rows in padded-ELL layout; ``x`` is
-replicated (gathered over ICI when it arrives sharded); ``y`` comes back
+replicated (gathered between devices when it arrives sharded); ``y`` comes back
 row-sharded. Two implementations:
 
 * :func:`dist_spmv` — ``shard_map`` with explicit collectives
@@ -54,7 +54,7 @@ def shard_ell(
 
 def dist_spmv(ell_vals, ell_cols, x, mesh: Mesh, *, axis: str = "rows"):
     """y = A @ x with explicit collectives: x arrives row-sharded, is
-    all-gathered over ICI, each device multiplies its row block."""
+    all-gathered between devices, each device multiplies its row block."""
     from jax import shard_map
 
     @partial(
@@ -118,7 +118,7 @@ def shard_ell_by_cols(
 def dist_spmv_colsplit(ell_vals3, ell_cols3, x, mesh: Mesh, *, axis: str = "rows"):
     """Column-split SpMV: each device multiplies its column slice against its
     x shard, then partial y vectors are summed and re-sharded with a
-    reduce-scatter (``psum_scatter``) over ICI."""
+    reduce-scatter (``psum_scatter``) between devices."""
     from jax import shard_map
 
     n = mesh.devices.size

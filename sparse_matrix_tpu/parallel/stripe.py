@@ -3,8 +3,8 @@
 and scattered matrices are exactly the class that shards badly).
 
 Row-sharding is the right decomposition for a scatter matrix: its columns
-have no locality to exploit, so the exchange is an all-gather of x over
-ICI (bytes = (D-1)/D * cols * 4 per device per apply — the same volume
+have no locality to exploit, so the exchange is an all-gather of x
+(bytes = (D-1)/D * cols * 4 per device per apply — the same volume
 model as the row-sharded ELL path, asserted by the traffic test), and
 each device then runs its own stripe plan on its row block. Per-shard
 plans are built host-side on contiguous row slices with a UNIFORM
@@ -13,10 +13,8 @@ serves every device; scan mode is used because it has no collision-spill
 side plan (select-mode spill would need a second, ragged LanePack shard
 per device).
 
-On the virtual CPU mesh the per-device apply runs the plan's vectorized
-XLA evaluation (the same math the Mosaic kernel executes per chip —
-ops/spmv.py `_stripe_reference`); on real multi-chip TPU the identical
-call sites lower to the Pallas kernel per device.
+Each device applies its shard with the stripe format's XLA evaluation
+(ops/spmv.py `_spmv_stripe_jit`), on a virtual CPU mesh and on GPUs alike.
 """
 
 from __future__ import annotations
@@ -116,11 +114,10 @@ def dist_spmv_stripe(arrs, x, mesh, meta, *, axis: str = "rows"):
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from ..ops.spmv import _spmv_stripe_jit, _interpret
+    from ..ops.spmv import _spmv_stripe_jit
 
     shard_rows = meta["shard_rows"]
-    cols, lvl, kw, b = meta["cols"], meta["levels"], meta["kw"], meta["b"]
-    interp = _interpret()
+    cols, lvl, kw = meta["cols"], meta["levels"], meta["kw"]
     spec = {k: P(axis) for k in arrs}
 
     @partial(
@@ -136,7 +133,7 @@ def dist_spmv_stripe(arrs, x, mesh, meta, *, axis: str = "rows"):
         local["chunk_stripe"] = local["chunk_stripe"].reshape(-1)
         y = _spmv_stripe_jit(
             local, x_full[:cols], rows=shard_rows, cols=cols, lvl=lvl,
-            kw=kw, scan=True, b=b, nbuf=2, interpret=interp)
+            kw=kw, scan=True)
         return y
 
     return _apply(arrs, x)

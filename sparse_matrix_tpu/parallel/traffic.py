@@ -1,6 +1,6 @@
-"""ICI traffic accounting for the distributed paths (VERDICT r3 #8).
+"""interconnect traffic accounting for the distributed paths (VERDICT r3 #8).
 
-The virtual-mesh tests check *correctness*; this module makes the ICI
+The virtual-mesh tests check *correctness*; this module makes the interconnect
 story quantitatively checkable before real multi-chip hardware appears:
 it lowers a jitted distributed function, compiles it for the active mesh,
 and parses the post-SPMD HLO for the collectives XLA actually inserted —
@@ -11,7 +11,7 @@ dot product).
 
 This measures the compiled program, not a runtime trace: on CPU virtual
 meshes the collectives are real SPMD ops with the same shapes they would
-have on ICI, so byte counts transfer; only latencies don't.
+have on the interconnect, so byte counts transfer; only latencies don't.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Block-Jacobi and Chebyshev-polynomial preconditioners.
 
-New scope beyond the reference; both are TPU-natural members of the
-preconditioner spectrum (docs/PERF.md):
+New scope beyond the reference; both are device-natural members of the
+preconditioner spectrum:
 
 * **Block-Jacobi** (:func:`block_jacobi_preconditioner`): rows partition
   into fixed 128-blocks; each diagonal block is extracted on host,
   inverted ONCE as a batched ``(nb, 128, 128)`` pinv, and the apply is a
-  single batched matmul on the MXU — between diagonal Jacobi and IC(0) in
+  single batched matmul — between diagonal Jacobi and IC(0) in
   strength, with a purely local apply (distributed-friendly: no
   cross-block coupling).
 * **Chebyshev polynomial** (:func:`chebyshev_preconditioner`): ``M^{-1} =
@@ -26,7 +26,7 @@ import numpy as np
 
 __all__ = ["block_jacobi_preconditioner", "chebyshev_preconditioner"]
 
-_BS = 128  # MXU-native block size
+_BS = 128  # diagonal block size
 
 
 def block_jacobi_preconditioner(m, *, bs: int = _BS, dtype=np.float32) -> Callable:

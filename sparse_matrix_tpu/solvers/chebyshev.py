@@ -1,9 +1,9 @@
 """Chebyshev semi-iteration: a dot-free linear solver for SPD operators.
 
-New scope beyond the reference. The point on TPU meshes: unlike CG, the
+New scope beyond the reference. The point on device meshes: unlike CG, the
 Chebyshev recurrence needs NO inner products — on a distributed operator
 (:mod:`..parallel`) every iteration is purely local work plus the
-operand all-gather, with zero cross-chip reductions on the critical path
+operand all-gather, with zero cross-device reductions on the critical path
 (CG pays two psums per iteration). The price is needing spectral bounds,
 which the library's own Lanczos estimate provides.
 

@@ -180,14 +180,14 @@ def eigs(matvec: Callable, n: int, k: int = 6, *, m: int = None, seed: int = 0):
         def body(j, state):
             basis, h = state
             w = matvec(basis[j])
-            coeff = basis @ w
+            coeff = jnp.dot(basis, w, precision=jax.lax.Precision.HIGHEST)
             keep = jnp.arange(m + 1) <= j
             coeff = jnp.where(keep, coeff, 0.0)
-            w = w - coeff @ basis
+            w = w - jnp.dot(coeff, basis, precision=jax.lax.Precision.HIGHEST)
             # one reorthogonalization pass (classical Gram-Schmidt twice
             # == numerically modified; keeps the basis orthonormal at f32)
-            coeff2 = jnp.where(keep, basis @ w, 0.0)
-            w = w - coeff2 @ basis
+            coeff2 = jnp.where(keep, jnp.dot(basis, w, precision=jax.lax.Precision.HIGHEST), 0.0)
+            w = w - jnp.dot(coeff2, basis, precision=jax.lax.Precision.HIGHEST)
             hnext = jnp.linalg.norm(w)
             live = hnext > 1e-6
             basis = basis.at[j + 1].set(

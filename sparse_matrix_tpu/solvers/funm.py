@@ -1,6 +1,6 @@
 """Matrix-function actions: ``y = exp(t A) @ b`` without forming exp(tA).
 
-New scope beyond the reference (no solver layer there). Two TPU-first
+New scope beyond the reference (no solver layer there). Two device
 paths, both pure matvec sequences that ride the planned SpMV/SpMM formats:
 
 * **Symmetric/SPD — Chebyshev** (:func:`expm_multiply_sym`): expand

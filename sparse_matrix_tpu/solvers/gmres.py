@@ -68,10 +68,10 @@ def gmres_solve(
                 w = matvec(m_inv(basis[j]))
                 # modified Gram-Schmidt against all m+1 rows (rows > j are
                 # zero vectors, contributing nothing)
-                hcol = basis @ w  # (m+1,)
+                hcol = jnp.dot(basis, w, precision=jax.lax.Precision.HIGHEST)  # (m+1,)
                 keep = jnp.arange(m + 1) <= j
                 hcol = jnp.where(keep, hcol, 0.0)
-                w = w - hcol @ basis
+                w = w - jnp.dot(hcol, basis, precision=jax.lax.Precision.HIGHEST)
                 hnext = jnp.sqrt(jnp.vdot(w, w).real)
                 basis = basis.at[j + 1].set(w / jnp.maximum(hnext, _EPS))
                 hcol = hcol.at[j + 1].set(hnext)
@@ -115,7 +115,7 @@ def gmres_solve(
             return y.at[i].set(yi)
 
         y = jax.lax.fori_loop(0, m, back, jnp.zeros(m, b.dtype))
-        x_new = x + m_inv(y @ basis[:m])
+        x_new = x + m_inv(jnp.dot(y, basis[:m], precision=jax.lax.Precision.HIGHEST))
         r_new = b - matvec(x_new)
         return x_new, jnp.sqrt(jnp.vdot(r_new, r_new).real)
 

@@ -4,7 +4,7 @@ New scope beyond the reference (whose solver layer does not exist — its
 host-kernel stance, ``spam_csr/src/mul_hash.rs:13-36``, is the model for
 where the sequential factorization lives: the native C++ runtime).
 
-TPU-first design:
+Device-first design:
 
 * **Factorization on the host** (``native/src/spmx_native.cpp::spmx_ilu0_*``,
   IKJ row variant on the fixed CSR pattern): ILU(0) is sequential along the
@@ -205,7 +205,7 @@ class TriangularJacobi:
     """
 
     def __init__(self, t, *, sweeps: int = 4, dtype=np.float32, force=None,
-                 fused=None, values_dtype=None):
+                 values_dtype=None):
         import jax.numpy as jnp
 
         from ..formats.csr import CsrMatrix
@@ -229,9 +229,7 @@ class TriangularJacobi:
         )
         # values_dtype=bfloat16: half-width planes on the strict part N
         # when its format supports them (preconditioner-grade — the sweep
-        # polynomial is approximate by construction; dinv stays f32). At
-        # 2048^2 the 3-band L factor is 50 MB f32 -> streaming regime,
-        # where bf16 measured 2.33x (docs/PERF.md session-5 table).
+        # polynomial is approximate by construction; dinv stays f32).
         self.n_op = None
         if values_dtype is not None:
             try:
@@ -241,29 +239,7 @@ class TriangularJacobi:
                 pass
         if self.n_op is None:
             self.n_op = SpmvOperator(n_mat, dtype=dtype, force=force)
-        # banded factors (IC/ILU of stencil operators) CAN run all sweeps
-        # in one fused Pallas call with x VMEM-resident (ops/trisweep.py),
-        # but the v5e ablation (experiments/ilu_pcg_1024.out, docs/PERF.md)
-        # measured the loop-of-DIA-SpMV form 3x FASTER at every tested
-        # shape/sweep count: XLA keeps the small band data VMEM-resident
-        # ACROSS PCG iterations and overlaps the band applies, while the
-        # fused kernel re-reads operands from HBM each solve and
-        # serializes sweeps inside one grid. Default is therefore OFF;
-        # ``fused=True`` is the explicit ablation knob (raises when the
-        # factor isn't banded/fusable).
-        self._fused = None
-        if fused is True and self.n_op.format == "dia" and self.n_op._dia is not None:
-            from ..ops.trisweep import plan_trisweep
-
-            self._fused = plan_trisweep(self.n_op._dia, t.rows)
-            if fused is True and self._fused is None:
-                raise ValueError("factor is not fusable (not banded or too large)")
-
     def __call__(self, b):
-        if b.ndim == 1 and self._fused is not None:
-            from ..ops.trisweep import trisweep
-
-            return trisweep(self._fused, b, self.dinv, sweeps=self.sweeps)
         dinv = self.dinv if b.ndim == 1 else self.dinv[:, None]
         apply_n = self.n_op if b.ndim == 1 else self.n_op.matmat
         x = dinv * b
@@ -276,21 +252,12 @@ class TriangularJacobi:
         ARGUMENT (see :meth:`SpmvOperator.as_pytree` for why: closure-
         captured factors embed tens of MB of constants per program at
         2048²+ scale)."""
-        p = {"dinv": self.dinv, "n": self.n_op.as_pytree()}
-        if self._fused is not None:
-            p["tri"] = self._fused.data2d
-        return p
+        return {"dinv": self.dinv, "n": self.n_op.as_pytree()}
 
     def apply(self, params, b):
         """Vector trisolve using :meth:`as_pytree` params (jit-traceable
         with ``params`` as an argument)."""
         dinv = params["dinv"]
-        if self._fused is not None and "tri" in params:
-            from ..ops.trisweep import trisweep
-
-            return trisweep(
-                self._fused, b, dinv, sweeps=self.sweeps, data2d=params["tri"]
-            )
         x = dinv * b
         for _ in range(self.sweeps):
             x = dinv * (b - self.n_op.apply(params["n"], x))
@@ -298,19 +265,19 @@ class TriangularJacobi:
 
 
 def ilu_preconditioner(a, *, sweeps: int = 4, dtype=np.float32, force=None,
-                       fused=None, values_dtype=None) -> Callable:
+                       values_dtype=None) -> Callable:
     """``M^{-1} r ~= U^{-1} L^{-1} r`` from ILU(0), both solves by Jacobi
     sweeps on device. For unsymmetric systems (BiCGStab / GMRES)."""
     f = ilu0(a)
-    sl = TriangularJacobi(f.l, sweeps=sweeps, dtype=dtype, force=force, fused=fused,
+    sl = TriangularJacobi(f.l, sweeps=sweeps, dtype=dtype, force=force,
                           values_dtype=values_dtype)
-    su = TriangularJacobi(f.u, sweeps=sweeps, dtype=dtype, force=force, fused=fused,
+    su = TriangularJacobi(f.u, sweeps=sweeps, dtype=dtype, force=force,
                           values_dtype=values_dtype)
     return lambda r: su(sl(r))
 
 
 def ic_preconditioner(a, *, sweeps: int = 4, dtype=np.float32, force=None,
-                      fused=None, values_dtype=None) -> Callable:
+                      values_dtype=None) -> Callable:
     """Symmetric PSD ``M^{-1} ~= L^{-T} L^{-1}`` from IC(0).
 
     Both solves use the same sweep count, so the lower-solve polynomial
@@ -319,10 +286,10 @@ def ic_preconditioner(a, *, sweeps: int = 4, dtype=np.float32, force=None,
     PCG requires (an *inexact* unsymmetric pairing would silently break
     the CG three-term recurrence)."""
     lc = ic0(a)
-    sl = TriangularJacobi(lc, sweeps=sweeps, dtype=dtype, force=force, fused=fused,
+    sl = TriangularJacobi(lc, sweeps=sweeps, dtype=dtype, force=force,
                           values_dtype=values_dtype)
     su = TriangularJacobi(lc.transpose(), sweeps=sweeps, dtype=dtype, force=force,
-                          fused=fused, values_dtype=values_dtype)
+                          values_dtype=values_dtype)
     return lambda r: su(sl(r))
 
 

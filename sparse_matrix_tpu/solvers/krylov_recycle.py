@@ -72,10 +72,10 @@ def _flex_arnoldi(matvec, pick_z, nsteps, n, dtype, v0, beta, c_outer,
             w = matvec(z)
             bcol = c_outer @ w  # (k,); invalid (zero) rows read 0
             w = w - bcol @ c_outer
-            hcol = basis @ w  # MGS; rows > j are zero vectors
+            hcol = jnp.dot(basis, w, precision=jax.lax.Precision.HIGHEST)  # MGS; rows > j are zero vectors
             keep = jnp.arange(t + 1) <= j
             hcol = jnp.where(keep, hcol, 0.0)
-            w = w - hcol @ basis
+            w = w - jnp.dot(hcol, basis, precision=jax.lax.Precision.HIGHEST)
             hnext = jnp.sqrt(jnp.vdot(w, w).real)
             basis = basis.at[j + 1].set(w / jnp.maximum(hnext, _EPS))
             hcol = hcol.at[j + 1].set(hnext)
@@ -257,7 +257,7 @@ def gcrotmk_solve(
         gamma = jnp.sqrt(jnp.vdot(hy, hy).real)
         ok = gamma > _EPS
         u_new = dx / jnp.maximum(gamma, _EPS)
-        c_new = (hy @ basis) / jnp.maximum(gamma, _EPS)
+        c_new = jnp.dot(hy, basis, precision=jax.lax.Precision.HIGHEST) / jnp.maximum(gamma, _EPS)
         u_buf = jnp.where(ok, jnp.roll(u_buf, -1, axis=0).at[k - 1].set(u_new),
                           u_buf)
         c_buf = jnp.where(ok, jnp.roll(c_buf, -1, axis=0).at[k - 1].set(c_new),

@@ -5,7 +5,7 @@ North-star scope (not in the Rust reference): the block companion to the
 single-vector Lanczos in :mod:`.eigen` — finds the k smallest (or largest)
 eigenpairs using only a multi-RHS matvec, which is exactly what the SpMM
 kernels provide (``SpmvOperator.matmat``: DIA shifted-slice SpMM or the
-aligned packed kernel, docs/PERF.md "aligned multi-RHS SpMM"). All dense
+aligned packed form). All dense
 subspace work is (3k x 3k) on-device (``jnp.linalg.qr`` / ``eigh``), the
 iteration is one ``lax.while_loop`` — same jit discipline as :mod:`.cg`;
 wrap the call in ``jax.jit`` when solving repeatedly.

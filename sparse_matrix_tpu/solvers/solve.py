@@ -3,8 +3,8 @@
 New scope beyond the reference: the "just solve it" entry point a
 scipy.sparse.linalg user expects, routing to the framework's own pieces:
 
-* small systems -> one dense MXU solve (exact; a 2k x 2k dense solve is
-  microseconds of MXU time, far under any iterative setup);
+* small systems -> one dense device solve (exact; a 2k x 2k dense solve
+  costs far less than any iterative setup);
 * symmetric (detected or declared): IC(0)-PCG, degrading to Jacobi-PCG if
   the factorization hits a non-positive pivot (not SPD), then to MINRES
   if PCG stagnates (indefinite);

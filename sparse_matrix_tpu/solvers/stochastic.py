@@ -6,7 +6,7 @@ operators only available as matvecs — Galerkin products, ``A^{-1}`` via a
 solver closure (log-det gradients), graph heat kernels via
 :func:`~.funm.expm_multiply_sym`.
 
-TPU-first: all ``k`` Rademacher probes run as ONE (n, k) block through the
+Device-first: all ``k`` Rademacher probes run as ONE (n, k) block through the
 operator's SpMM path (``matvec`` receives the full block when it supports
 2-D inputs — every :class:`~sparse_matrix_tpu.ops.operator.SpmvOperator`
 does via ``matmat``), so probe count scales along the packed-RHS axis the

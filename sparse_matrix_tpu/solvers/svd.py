@@ -4,10 +4,10 @@ New scope beyond the reference (no solver layer there); completes the
 spectral family (power/Lanczos/LOBPCG are symmetric-only, LSQR solves
 rectangular systems — this factorizes them).
 
-TPU-first design: the bidiagonalization runs as one jitted
+Device-first design: the bidiagonalization runs as one jitted
 ``lax.fori_loop`` holding the U (steps, m) and V (steps, n) bases in fixed
 buffers; full reorthogonalization is two dense (steps, n) matmuls per step
-(MXU work, the same masked-basis trick as the GMRES Arnoldi loop — rows
+(dense matmul work at full f32 precision, the same masked-basis trick as the GMRES Arnoldi loop — rows
 beyond the current step are zero and contribute nothing). Only the tiny
 (steps x steps) bidiagonal SVD runs on the host. ``matvec``/``rmatvec``
 are pluggable, so planned :class:`~sparse_matrix_tpu.ops.operator.
@@ -51,9 +51,9 @@ def _gkl(matvec, rmatvec, m: int, n: int, steps: int, seed: int):
     def reorth(w, basis, j_excl):
         """Project w off basis rows < j_excl (rows >= are zero anyway;
         the mask guards the current/future rows)."""
-        coeff = basis @ w
+        coeff = jnp.dot(basis, w, precision=jax.lax.Precision.HIGHEST)
         keep = jnp.arange(basis.shape[0]) < j_excl
-        return w - jnp.where(keep, coeff, 0.0) @ basis
+        return w - jnp.dot(jnp.where(keep, coeff, 0.0), basis, precision=jax.lax.Precision.HIGHEST)
 
     def body(j, state):
         ubuf, vbuf, alphas, betas = state

@@ -5,7 +5,7 @@ solvers return scipy's ``(x, info)`` tuples, ``eigs``/``eigsh``/``svds``
 return scipy-ordered arrays, and matrix arguments may be a
 :class:`~sparse_matrix_tpu.formats.csr.CsrMatrix`, any scipy.sparse matrix,
 a dense 2-D ndarray, or a :class:`LinearOperator`. Device execution (planned
-TPU operators) kicks in whenever the input is one of our host CSR matrices;
+operators) kicks in whenever the input is one of our host CSR matrices;
 foreign matrices are converted once up front.
 
 Semantics deltas vs scipy, stated once:

@@ -1,7 +1,7 @@
 """Profiling hooks.
 
 The reference profiles externally (perf @997Hz -> flamegraph,
-``flamegraph.sh:1``); the TPU equivalent is the JAX profiler producing
+``flamegraph.sh:1``); the device equivalent is the JAX profiler producing
 Perfetto/TensorBoard traces. This module wraps it so benches and the corpus
 runner can flip tracing on with one env var (``SPMX_TRACE_DIR``), plus the
 in-code instrument the reference ships: probe-length histograms behind the

@@ -169,9 +169,8 @@ def test_refresh_device_matches_host_refresh():
 
 
 def test_hbm_budget_guard(monkeypatch):
-    """4096²-class plans exceed one v5e's HBM mid-push
-    (amg_refresh_bench_r5b.out RESOURCE_EXHAUSTED); the pre-flight
-    estimate (59 B per finest-AP product, calibrated on the 1024²/2048²
+    """Plans larger than the device budget would die mid-push with
+    RESOURCE_EXHAUSTED; the pre-flight estimate (59 B per finest-AP product, calibrated on the 1024²/2048²
     push telemetry) must fail BEFORE planning with the documented
     alternatives."""
     import pytest

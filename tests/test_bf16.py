@@ -1,11 +1,9 @@
 """bf16 value-plane storage + mixed-precision refinement CG.
 
 The DIA band planes / BELL slot value planes are the dominant HBM stream
-of their kernels; ``values_dtype=bfloat16`` stores them half-width and
-the kernels widen per block, accumulating in the x dtype (f32). The CPU
-paths below run the same widening math as the TPU kernels (XLA DIA path;
-BELL pure-XLA reference), so parity here is the semantics oracle for the
-hardware test in test_tpu_kernels.py.
+of their applies; ``values_dtype=bfloat16`` stores them half-width and
+the applies widen them, accumulating in the x dtype (f32). The GPU runs
+the same XLA programs (tests/test_gpu.py checks them on the card).
 """
 
 import jax.numpy as jnp

@@ -140,83 +140,55 @@ def test_operator_force_lanepack_is_respected():
     assert op2.format == "aligned"
 
 
-def test_dia_pallas_streaming_kernel_interpret():
-    """The large-DIA streaming kernel (x VMEM-resident, banded data in
-    blocks, lane-concat shifts) vs the XLA path — interpret mode at a
-    small forced block size (the real kernel runs in the TPU suite)."""
-    import jax.numpy as jnp
-
-    from sparse_matrix_tpu.formats.dia import try_dia_from_csr
-    from sparse_matrix_tpu.ops import spmv_dia as sd
-    from sparse_matrix_tpu.solvers import poisson_2d_csr
-
-    a = poisson_2d_csr(32, dtype=np.float32)  # offsets (-32,-1,0,1,32)
-    dia = try_dia_from_csr(a)
-    rng = np.random.default_rng(0)
-    x = rng.standard_normal(a.rows).astype(np.float32)
-    ref = np.asarray(sd.spmv_dia(dia, x))
-    dpad = sd._dia_pallas_blocked_data(jnp.asarray(dia.data), rows=dia.rows, br=2)
-    y = np.asarray(
-        sd._spmv_dia_pallas(
-            dpad, jnp.asarray(x),
-            offsets=dia.offsets, rows=dia.rows, interpret=True, br=2,
-        )
-    )
-    np.testing.assert_allclose(y, ref, rtol=1e-5, atol=1e-5)
-
-
-def test_dia_pallas_negative_lane_shift_interpret():
-    """Offsets with r != 0 after the divmod (incl. negatives: -1 -> q=-1,
-    r=127) exercise the two-view lane concatenation."""
+@pytest.mark.parametrize("values_dtype", [None, "bfloat16"])
+def test_dia_large_operator_takes_xla_path(values_dtype):
+    """Band data above 48 MB (the size that used to switch to a streaming
+    kernel) runs the same fused XLA form and matches a float64 oracle."""
+    import jax
     import jax.numpy as jnp
 
     from sparse_matrix_tpu.formats.dia import DiaMatrix
-    from sparse_matrix_tpu.ops import spmv_dia as sd
+    from sparse_matrix_tpu.ops.spmv_dia import dia_device_arrays, spmv_dia
+
+    rows = 2_600_000
+    offs = (-1613, -1, 0, 1, 1613)
+    rng = np.random.default_rng(7)
+    data = rng.integers(-4, 5, (len(offs), rows)).astype(np.float32)
+    assert data.nbytes > 48 * 1024 * 1024
+    d = DiaMatrix(rows, rows, data, offs)
+    vdt = jnp.bfloat16 if values_dtype else None
+    arrs = dia_device_arrays(d, values_dtype=vdt)
+    x = rng.standard_normal(rows).astype(np.float32)
+    jaxpr = str(jax.make_jaxpr(lambda v: spmv_dia(d, v, device_arrays=arrs))(x))
+    assert "pallas_call" not in jaxpr
+    y = np.asarray(spmv_dia(d, x, device_arrays=arrs), np.float64)
+    ref = np.zeros(rows)
+    scale = np.zeros(rows)
+    x64 = x.astype(np.float64)
+    for b, off in enumerate(offs):
+        lo, hi = max(0, -off), min(rows, rows - off)
+        ref[lo:hi] += data[b, lo:hi] * x64[lo + off:hi + off]
+        scale[lo:hi] += np.abs(data[b, lo:hi] * x64[lo + off:hi + off])
+    # small-integer band values are exact in bf16 too
+    assert np.abs(y - ref).max() <= 1e-5 * scale.max()
+
+
+def test_dia_packed_spmm_negative_lane_shifts():
+    """Offsets whose divmod by 128 leaves a lane shift (incl. negatives:
+    -1 -> q=-1, r=127) exercise the packed layout's two-view lane
+    concatenation."""
+    from sparse_matrix_tpu.formats.dia import DiaMatrix
+    from sparse_matrix_tpu.ops.spmv_dia import spmm_dia_stream
 
     rng = np.random.default_rng(1)
     rows = 4096
     offs = (-129, -1, 0, 3, 130)
     data = np.zeros((5, rows), np.float32)
     for b, off in enumerate(offs):
-        lo = max(0, -off)
-        hi = min(rows, rows - off)
+        lo, hi = max(0, -off), min(rows, rows - off)
         data[b, lo:hi] = rng.standard_normal(hi - lo)
     d = DiaMatrix(rows, rows, data, offs)
-    x = rng.standard_normal(rows).astype(np.float32)
-    ref = d.to_csr().to_dense() @ x
-    dpad = sd._dia_pallas_blocked_data(jnp.asarray(data), rows=rows, br=4)
-    y = np.asarray(
-        sd._spmv_dia_pallas(
-            dpad, jnp.asarray(x),
-            offsets=offs, rows=rows, interpret=True, br=4,
-        )
-    )
+    x = rng.standard_normal((rows, 4)).astype(np.float32)
+    ref = d.to_csr().to_dense().astype(np.float64) @ x
+    y = np.asarray(spmm_dia_stream(d, x, br=4))
     np.testing.assert_allclose(y, ref, rtol=1e-4, atol=1e-4)
-
-
-def test_dia_pallas_cache_across_jit_traces(monkeypatch):
-    """Regression: the blocked-data cache is built on first use, which can
-    happen INSIDE a jit trace; the cached constant must be concrete."""
-    import jax
-    import jax.numpy as jnp
-
-    from sparse_matrix_tpu.formats.dia import try_dia_from_csr
-    from sparse_matrix_tpu.ops import spmv_dia as sd
-    from sparse_matrix_tpu.solvers import poisson_2d_csr
-
-    # shrink the thresholds so a small matrix takes the pallas branch
-    monkeypatch.setattr(sd, "_DIA_STACK_BYTES", 0)
-    monkeypatch.setattr(sd, "_DIA_PALLAS_BR", 2)
-    a = poisson_2d_csr(32, dtype=np.float32)
-    dia = try_dia_from_csr(a)
-    arrs = sd.dia_device_arrays(dia)
-    rng = np.random.default_rng(3)
-    x = rng.standard_normal(a.rows).astype(np.float32)
-    ref = a.to_dense() @ x
-    y1 = np.asarray(jax.jit(lambda v: sd.spmv_dia(dia, v, device_arrays=arrs))(x))
-    assert "data_blocked" in arrs and not isinstance(
-        arrs["data_blocked"], jax.core.Tracer
-    )
-    y2 = np.asarray(jax.jit(lambda v: sd.spmv_dia(dia, v, device_arrays=arrs))(x))
-    np.testing.assert_allclose(y1, ref, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(y2, ref, rtol=1e-4, atol=1e-4)

@@ -1,7 +1,7 @@
 """Docs-evidence lint (VERDICT r4 #4): every ``experiments/<name>.out``
 (or ``.json``) a doc cites must exist in the tree — a perf claim whose
-record is gone is a TODO, not a result. Lost round-3/4 records are
-struck to ``docs/ERRATA.md`` instead of cited by path.
+record is gone is a TODO, not a result. A claim whose record is gone is
+rewritten without the citation.
 """
 
 import os
@@ -36,8 +36,7 @@ def test_cited_experiment_records_exist():
                 missing.setdefault(cite, []).append(os.path.basename(doc))
     assert not missing, (
         f"docs cite experiment records not in the tree: {missing} — "
-        "regenerate the record (git add -f) or strike the citation to "
-        "docs/ERRATA.md"
+        "regenerate the record (git add -f) or drop the claim"
     )
 
 

@@ -353,59 +353,3 @@ def test_ilu_factors_save_load_roundtrip(tmp_path):
         trisolve_host(f2.l, b, lower=True, unit=True),
         trisolve_host(f.l, b, lower=True, unit=True),
     )
-
-
-def test_fused_trisweep_matches_unfused():
-    """The fused one-call trisweep (ops/trisweep.py) must reproduce the
-    per-sweep band-apply loop on banded IC factors, through both the
-    closure path and the as_pytree/apply path."""
-    import jax
-
-    rng = np.random.default_rng(11)
-    p = poisson_2d_csr(24, dtype=np.float32)  # 576 rows: fused-eligible
-    lc = ic0(p)
-    b = rng.standard_normal(p.rows).astype(np.float32)
-    for t in (lc, lc.transpose()):
-        for sweeps in (1, 4):
-            # fused is an explicit opt-in since the v5e ablation measured
-            # the loop form 3x faster (experiments/ilu_pcg_1024.out)
-            sj = TriangularJacobi(t, sweeps=sweeps, dtype=np.float32, fused=True)
-            assert sj._fused is not None, "Poisson IC factor must plan fused"
-            got = np.asarray(sj(np.asarray(b)))
-            # unfused reference: same dinv/N op, explicit loop
-            x = sj.dinv * b
-            for _ in range(sweeps):
-                x = sj.dinv * (b - sj.n_op(x))
-            np.testing.assert_allclose(got, np.asarray(x), rtol=2e-6, atol=2e-7)
-            got_p = np.asarray(jax.jit(sj.apply)(sj.as_pytree(), np.asarray(b)))
-            np.testing.assert_allclose(got_p, got, rtol=1e-6, atol=1e-7)
-
-
-def test_trisweep_plan_gates():
-    """plan_trisweep gates: VMEM cap and tiny shapes return None;
-    fused=True raises when ineligible; fused=False disables."""
-    from sparse_matrix_tpu.ops.trisweep import plan_trisweep, TrisweepPlan
-
-    p = poisson_2d_csr(24, dtype=np.float32)
-    lc = ic0(p)
-    sj = TriangularJacobi(lc, sweeps=2, fused=False)
-    assert sj._fused is None  # knob honored
-    sj_def = TriangularJacobi(lc, sweeps=2)
-    assert sj_def._fused is None  # default OFF (measured negative)
-    # tiny (rows < 128) is ineligible even when requested
-    tiny = poisson_2d_csr(8, dtype=np.float32)
-    lt = ic0(tiny)
-    with pytest.raises(ValueError, match="not fusable"):
-        TriangularJacobi(lt, sweeps=2, fused=True)
-    # cap: a plan whose working set exceeds the VMEM budget is rejected
-    from sparse_matrix_tpu.formats.dia import try_dia_from_csr
-    dia = try_dia_from_csr(
-        CsrMatrix.from_dok(DokMatrix.from_dense(np.tril(np.ones((4, 4)), -1)))
-    )
-    import sparse_matrix_tpu.ops.trisweep as tw
-    old = tw._TRISWEEP_VMEM_BYTES
-    try:
-        tw._TRISWEEP_VMEM_BYTES = 1
-        assert tw.plan_trisweep(dia, 4) is None
-    finally:
-        tw._TRISWEEP_VMEM_BYTES = old

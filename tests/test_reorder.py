@@ -2,7 +2,7 @@
 recovery on shuffled structured matrices, and a scipy differential check.
 
 New-scope module (no reference counterpart): formats/reorder.py exists so
-the locality-dependent TPU fast paths (DIA, aligned) apply to corpora with
+the locality-dependent fast paths (DIA, aligned) apply to corpora with
 arbitrary node numbering.
 """
 

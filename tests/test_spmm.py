@@ -342,15 +342,15 @@ def test_spmm_dia_stream_parity():
 
 
 def test_operator_matmat_dia_streaming_dispatch(monkeypatch):
-    """matmat routes square streaming-regime DIA operators through
+    """matmat routes large square DIA operators through the packed
     spmm_dia_stream in balanced chunks of <=16 columns (threshold patched
     down so a test-size operator exercises the real branch)."""
-    from sparse_matrix_tpu.ops import spmv_dia as sd
+    from sparse_matrix_tpu.ops import operator as opmod
     from sparse_matrix_tpu.ops.operator import SpmvOperator
     from sparse_matrix_tpu.ops.spmv import spmv_oracle
     from sparse_matrix_tpu.solvers import poisson_2d_csr
 
-    monkeypatch.setattr(sd, "_DIA_STACK_BYTES", 1024)
+    monkeypatch.setattr(opmod, "_DIA_PACKED_MIN_BYTES", 1024)
     a = poisson_2d_csr(40, dtype=np.float32)
     op = SpmvOperator(a, force="dia")
     rng = np.random.default_rng(1)

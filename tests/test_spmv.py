@@ -1,5 +1,5 @@
-"""SpMV kernel property tests: LanePack (Pallas, interpret mode on CPU) and
-the XLA ELL path, against the numpy CSR oracle."""
+"""SpMV property tests: the LanePack plan's XLA evaluation and the XLA ELL
+path, against the numpy CSR oracle."""
 
 import numpy as np
 import pytest
@@ -251,7 +251,7 @@ def test_aligned_segments_beyond_smem_budget(monkeypatch):
 def test_operator_as_pytree_apply_matches_call():
     """op.apply(op.as_pytree(), x) under jit-with-params-as-argument must
     match op(x) for every format (the large-operator pattern: arrays as
-    runtime operands, not 84 MB program constants — docs/PERF.md)."""
+    runtime operands, not 84 MB program constants)."""
     import jax
     import numpy as np
 
